@@ -1,0 +1,472 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch/CUDA port (balm_tpu_torch).
+
+    python3 chip_smoke.py [--seed 0]
+
+Needs one CUDA card and nvcc (CUDA_HOME, /usr/local/cuda or PATH).  It
+imports neither jax nor balm_tpu.  Phases, each printed on a flushed line
+as it starts and ends; any failure raises and the script exits non-zero:
+
+  1. device  - the card's name and power limit (nvidia-smi)
+  2. build   - one nvcc call for csrc/packed_kernels.cu (sm_90a)
+  3. scene   - a synthetic scene from --seed: 256 scans along a smooth
+               trajectory through a field of planar patches, ~30 k points
+               each, poses perturbed with the virtual protocol's noise
+               (2 deg, 0.1 m); voxelized, recentered and packed
+  4. kernels - each CUDA kernel against its plain PyTorch version on the
+               card, at the slice's shape and at a ragged small shape
+               (W=13, G=300), with CUDA-event times and the bytes bound
+  5. small   - optimize_poses on the card against the plain CPU path on a
+               small scene
+  6. slice   - the main path: optimize_poses(..., backend='packed') on
+               the card with every kernel's launch count set to 0 just
+               before and read just after; residual trace, RSME against
+               ground truth; then at the same size one evaluate (res, J,
+               H) and the first SLICE_ITERS LM iterations on the card
+               against the plain CPU path; ms per LM iteration (CUDA
+               events)
+
+The line before the last is {"kernels": [...]}: `max_abs_err` is that of
+the kernel's main output (csum's moments, rows' rank rows), and
+`err_by_output` holds the absolute and the relative (to max|plain|)
+error of every output.  The last line is
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
+# the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+# floating-point operations per (scan, plane), counted from the sources in
+# csrc/packed_kernels.cu: csum = two shifted_t + rprt + the two-pass
+# updates; rows = rows_point + the J/D reduction
+CSUM_FLOPS_PER_WG = 165
+ROWS_FLOPS_PER_WG = 870
+# kernel-vs-plain tolerances, relative to max|plain| of each output: the
+# per-element arithmetic is the same up to nvcc's FMA contraction (the
+# cancelling translation rounds step by step), but the kernel sums in
+# another order (8 scan lanes, plane tiles) than PyTorch's
+# reductions, and cuBLAS forms sum_w R P R^T in the plain csum
+TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
+# the card against the plain CPU path at the slice's full size (phase 6).
+# The evaluate at the perturbed poses: res relative to itself, J and H
+# relative to their max|.| (the bars of tests/test_pallas_evaluate.py:
+# 40-58); the kernels, eigh3's transcendentals, cuBLAS against the CPU's
+# fp32 GEMM and the diagonal add all sum or round in another order.  The
+# first SLICE_ITERS LM iterations: the same accept/reject pattern and
+# every res1/res2 within 1e-3 relative (phase 5's bar for a whole solve:
+# a step through a 1536-unknown Cholesky carries those differences on).
+TOL_EVAL = {"res": 1e-5, "J": 1e-4, "H": 1e-4}
+TOL_TRACE = 1e-3
+SLICE_ITERS = 3
+SCANS = 256
+POINTS_PER_SCAN = 30000
+VOXEL = 2.0
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# synthetic scene
+# --------------------------------------------------------------------------
+
+def make_scene(W, seed, *, pts_per_scan=POINTS_PER_SCAN, voxel=VOXEL,
+               step=2.0, vis=5.5, ny=6, nz=4, sigma=0.005):
+    """Ground-truth poses and body-frame scans: a sensor moving `step` m
+    per scan along x (smooth lateral sway and attitude) through a tube of
+    voxel cells ny x nz wide, each holding one square planar patch
+    (0.8 voxel wide, normal along a random axis, sigma m thick).  Scan w
+    sees the patches within `vis` m of it along x."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    w = np.arange(W)
+    p = np.stack([step * w, 0.3 * np.sin(w / 15.0),
+                  0.2 * np.sin(w / 23.0)], -1)
+    ang = np.stack([0.02 * np.sin(w / 17.0), 0.02 * np.sin(w / 31.0),
+                    0.05 * np.sin(w / 20.0)], -1)
+    R = lie.so3_exp(torch.as_tensor(ang)).numpy()
+    x0 = int(np.floor((p[:, 0].min() - vis) / voxel))
+    x1 = int(np.ceil((p[:, 0].max() + vis) / voxel))
+    xs = (np.arange(x0, x1) + 0.5) * voxel
+    ys = (np.arange(-(ny // 2), ny - ny // 2) + 0.5) * voxel
+    zs = (np.arange(-(nz // 2), nz - nz // 2) + 0.5) * voxel
+    C = np.stack(np.meshgrid(xs, ys, zs, indexing="ij"), -1).reshape(-1, 3)
+    axis = rng.integers(0, 3, len(C))
+    perms = np.stack([np.roll(np.arange(3), a + 1) for a in range(3)])
+    h = 0.4 * voxel
+    scans = []
+    for i in range(W):
+        ids = np.nonzero(np.abs(C[:, 0] - p[i, 0]) <= vis)[0]
+        K = pts_per_scan // len(ids)
+        local = np.concatenate([
+            rng.uniform(-h, h, size=(len(ids), K, 2)),
+            rng.normal(0.0, sigma, size=(len(ids), K, 1))], -1)
+        world = np.take_along_axis(local, perms[axis[ids]][:, None, :], 2)
+        world = (world + C[ids][:, None, :]).reshape(-1, 3)
+        scans.append((world - p[i]) @ R[i])
+    return R, p, scans
+
+
+def perturb(R, p, seed, rot_deg=2.0, trans=0.1):
+    """The virtual protocol's pose corruption (balm_tpu/pipelines/
+    virtual.py:88-99): right-multiplicative rotation noise and additive
+    translation noise, per-axis sigma = total / sqrt(3)."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed + 1)
+    W = len(R)
+    drot = rng.normal(0.0, (rot_deg / 57.3) / np.sqrt(3.0), size=(W, 3))
+    dtra = rng.normal(0.0, trans / np.sqrt(3.0), size=(W, 3))
+    dR = lie.so3_exp(torch.as_tensor(drot)).numpy()
+    return np.einsum("wab,wbc->wac", R, dR), p + dtra
+
+
+def rsme(R1, p1, R_gt, p_gt):
+    """(rot rad, trans m) after gauge-fixing both trajectories."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+    from balm_tpu_torch.utils import metrics
+
+    T = lambda a: torch.as_tensor(np.asarray(a, np.float64))
+    g = lie.gauge_fix(T(R_gt), T(p_gt))
+    return tuple(float(x) for x in
+                 metrics.pose_rsme(*lie.gauge_fix(T(R1), T(p1)), *g))
+
+
+# --------------------------------------------------------------------------
+# kernel checks
+# --------------------------------------------------------------------------
+
+def time_ms(fn, iters=20, warmup=3):
+    """Mean ms per call over `iters` calls, CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def ragged_problem(seed, W=13, G=300, device="cuda"):
+    """Random packed inputs at an unpadded shape: PSD moments, some scans
+    not observing, some fixed moments."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+    from balm_tpu_torch.ops.packed import PackedFactors
+
+    rng = np.random.default_rng(seed)
+    R = lie.so3_exp(torch.as_tensor(rng.normal(size=(W, 3)))).numpy()
+    pose = np.concatenate([R.reshape(W, 9), rng.normal(size=(W, 3)) * 3],
+                          1)
+    A = rng.normal(size=(W, G, 3, 3)) * 0.3
+    P = A @ np.swapaxes(A, -1, -2)
+    n = rng.integers(0, 40, size=(W, G)).astype(np.float64)
+    n[rng.random((W, G)) < 0.3] = 0.0
+    P *= n[..., None, None]
+    ch = [P[..., 0, 0], P[..., 0, 1], P[..., 0, 2], P[..., 1, 1],
+          P[..., 1, 2], P[..., 2, 2]]
+    b = rng.normal(size=(W, G, 3))
+    mom = np.stack(ch + [b[..., 0], b[..., 1], b[..., 2], n], 1)
+    cfix = np.zeros((10, G))
+    fixed = rng.random(G) < 0.3
+    cfix[9] = np.where(fixed, 25.0, 0.0)
+    cfix[6:9] = rng.normal(size=(3, G)) * fixed
+    cfix[[0, 3, 5]] = 0.5 * fixed
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return T(pose), PackedFactors(mom=T(mom), cen=T(rng.normal(size=(3, G))),
+                                  coe=T(rng.uniform(1, 50, size=(1, G))),
+                                  cfix=T(cfix))
+
+
+def check_kernels(pose, pk, tag):
+    """Kernel vs plain version on the same CUDA inputs; returns records."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    Wp, Gp = pk.wp, pk.gp
+    out = {}
+    got = pe.csum_packed(pose, pk.mom, pk.cen, pk.cfix)
+    ref = pe.csum_packed_plain(pose, pk.mom, pk.cen, pk.cfix)
+    torch.cuda.synchronize()
+    out["csum"] = {"csum": compare(f"[{tag}] csum Wp={Wp} Gp={Gp}", got,
+                                   ref, TOL["csum"])}
+
+    _, aux = pe._aux_from_csum(ref, pk, 1e-9)
+    rows, J, D = pe.rows_packed(pose, pk.mom, pk.cen, aux)
+    rows0, J0, D0 = pe.rows_packed_plain(pose, pk.mom, pk.cen, aux)
+    torch.cuda.synchronize()
+    out["rows"] = {
+        name: compare(f"[{tag}] rows/{name} Wp={Wp} Gp={Gp}", a, b,
+                      TOL[name])
+        for name, a, b in (("rows", rows, rows0), ("J", J, J0),
+                           ("D", D, D0))}
+    return out, aux
+
+
+def compare(what, got, ref, tol):
+    """max|got - ref| and that over max|ref|; raises above `tol` (on the
+    relative figure).  Both may lie on different devices."""
+    got = got.detach().cpu().double()
+    ref = ref.detach().cpu().double()
+    err = float((got - ref).abs().max())
+    rel = err / max(float(ref.abs().max()), 1e-30)
+    log(f"  {what}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e})")
+    if not (np.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"{what} disagrees: rel {rel} > {tol}")
+    return {"abs": err, "rel": rel}
+
+
+def bounds(Wp, Gp):
+    """Least time (ms) for each kernel's work at this shape: the larger
+    of bytes (inputs read once, outputs written once) over HBM bandwidth
+    and flops over the fp32 peak."""
+    wg = Wp * Gp
+    csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
+    rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
+                      + 42 * Wp)
+    res = {}
+    for name, nbytes, flops in (("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg),
+                                ("rows", rows_bytes, ROWS_FLOPS_PER_WG * wg)):
+        tb = nbytes / PEAK_BYTES_PER_S * 1e3
+        tf = flops / PEAK_F32_FLOPS * 1e3
+        res[name] = {"bound_ms": max(tb, tf),
+                     "bound_by": "bytes" if tb >= tf else "operations",
+                     "bytes": nbytes, "flops": flops}
+    return res
+
+
+# --------------------------------------------------------------------------
+# main
+# --------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    t_all = time.perf_counter()
+
+    log("phase 1/6 device")
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is false; this smoke run "
+            "needs one CUDA card")
+        return 1
+    import balm_tpu_torch
+    from balm_tpu_torch.config import VoxelConfig
+    from balm_tpu_torch.ops import _cuda
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import packed as packed_mod
+    from balm_tpu_torch.ops import packed_evaluate as pe
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.voxel import grid
+
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "balm_tpu", "tests")]
+    if bad:
+        raise AssertionError(f"the smoke run imported {bad}")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log(f"  card: {card}")
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+        f"devices {torch.cuda.device_count()}")
+    dev = torch.device("cuda", 0)
+
+    log("phase 2/6 build")
+    b = _cuda.build(force=True)
+    log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
+    for line in b["log"].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    _cuda.lib()
+
+    log("phase 3/6 scene")
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_scene(SCANS, args.seed)
+    R0, p0 = perturb(R_gt, p_gt, args.seed)
+    vcfg = VoxelConfig(voxel_size=VOXEL)
+    n_pts = sum(len(s) for s in scans)
+    vres = grid.voxelize(scans, R0, p0, vcfg)
+    f = Fmod.factors_from_numpy(Fmod.recenter_bodies(vres.factors),
+                                device=dev)
+    pk = packed_mod.pack_factors(f)
+    pose = packed_mod.pad_poses(
+        torch.tensor(R0, dtype=torch.float32, device=dev),
+        torch.tensor(p0, dtype=torch.float32, device=dev), pk.wp)
+    torch.cuda.synchronize()
+    log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
+        f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
+
+    log("phase 4/6 kernels vs plain")
+    recs, aux = check_kernels(pose, pk, "slice")
+    pose_r, pk_r = ragged_problem(args.seed, device=dev)
+    check_kernels(pose_r, pk_r, "ragged W=13 G=300")
+    bnd = bounds(pk.wp, pk.gp)
+    n_launch0 = (pe.csum_packed.launches, pe.rows_packed.launches)
+    timing = {
+        "csum": (time_ms(lambda: pe.csum_packed(pose, pk.mom, pk.cen,
+                                                pk.cfix)),
+                 time_ms(lambda: pe.csum_packed_plain(pose, pk.mom, pk.cen,
+                                                      pk.cfix))),
+        "rows": (time_ms(lambda: pe.rows_packed(pose, pk.mom, pk.cen, aux)),
+                 time_ms(lambda: pe.rows_packed_plain(pose, pk.mom, pk.cen,
+                                                      aux), iters=5)),
+    }
+    if (pe.csum_packed.launches <= n_launch0[0]
+            or pe.rows_packed.launches <= n_launch0[1]):
+        raise AssertionError("the timed calls did not launch the kernels")
+    for name, (ms, plain_ms) in timing.items():
+        bb = bnd[name]
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}: {bb['bytes']} B, "
+            f"{bb['flops']} flop) at Wp={pk.wp} Gp={pk.gp} on {card}")
+
+    log("phase 5/6 small slice: card vs plain CPU path")
+    Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
+    Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
+    _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
+    _, _, ih = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg,
+                                             device="cpu")
+    log(f"  cuda: planes {ic['num_planes']} iters {ic['iters']} residual "
+        f"{ic['residual_initial']:.6f} -> {ic['residual']:.6f}")
+    log(f"  cpu:  planes {ih['num_planes']} iters {ih['iters']} residual "
+        f"{ih['residual_initial']:.6f} -> {ih['residual']:.6f}")
+    if ic["num_planes"] != ih["num_planes"]:
+        raise AssertionError("plane counts differ between card and CPU")
+    if abs(ic["residual_initial"] - ih["residual_initial"]) \
+            > 1e-5 * ih["residual_initial"]:
+        raise AssertionError("initial residuals differ beyond 1e-5")
+    if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
+        raise AssertionError("final residuals differ beyond 1e-3")
+
+    log("phase 6/6 slice: optimize_poses on the card")
+    pe.csum_packed.launches = 0
+    pe.rows_packed.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R1, p1, info = balm_tpu_torch.optimize_poses(
+        scans, R0, p0, voxel=vcfg, backend="packed", verbose=True)
+    torch.cuda.synchronize()
+    t_slice = time.perf_counter() - t0
+    launches = {"csum": pe.csum_packed.launches,
+                "rows": pe.rows_packed.launches}
+    log(f"  info: {json.dumps(info)}")
+    log(f"  launches in the main path: {launches}; optimize_poses "
+        f"{t_slice:.3f} s wall (voxelize + solve)")
+    rs0 = rsme(R0, p0, R_gt, p_gt)
+    rs1 = rsme(R1, p1, R_gt, p_gt)
+    log(f"  RSME before: rot {rs0[0]:.6e} rad, trans {rs0[1]:.6e} m")
+    log(f"  RSME after:  rot {rs1[0]:.6e} rad, trans {rs1[1]:.6e} m")
+
+    # the card against the plain CPU path at this size (launches made
+    # here are not the main path's): one evaluate, then the first
+    # SLICE_ITERS iterations of the solve
+    R0t = torch.tensor(R0, dtype=torch.float32, device=dev)
+    p0t = torch.tensor(p0, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    f_cpu = Fmod.factors_from_numpy(Fmod.recenter_bodies(vres.factors),
+                                    device="cpu")
+    R0c, p0c = R0t.cpu(), p0t.cpu()
+    ev_g = pe.evaluate_packed_jw(R0t, p0t, pk)
+    ev_c = pe.evaluate_packed_jw(R0c, p0c, packed_mod.pack_factors(f_cpu))
+    compare("evaluate res, card vs CPU", ev_g[0][None], ev_c[0][None],
+            TOL_EVAL["res"])
+    compare("evaluate J, card vs CPU", ev_g[1], ev_c[1], TOL_EVAL["J"])
+    compare("evaluate H, card vs CPU", ev_g[2], ev_c[2], TOL_EVAL["H"])
+    del ev_g, ev_c
+    short = balm_tpu_torch.SolverConfig(max_iters=SLICE_ITERS)
+    tr_g = lm.damping_iter(R0t, p0t, f, short)
+    tr_c = lm.damping_iter(R0c, p0c, f_cpu, short)
+    for name, tr in (("card", tr_g), ("cpu", tr_c)):
+        log(f"  first {SLICE_ITERS} iterations, {name}:")
+        for line in lm.format_trace(tr).splitlines():
+            log(f"    {line}")
+    if (tr_g.iters != tr_c.iters or not np.array_equal(
+            tr_g.trace_accept[:tr_g.iters], tr_c.trace_accept[:tr_c.iters])):
+        raise AssertionError("card and CPU solves take different steps")
+    for key in ("trace_res1", "trace_res2"):
+        a = getattr(tr_g, key)[:tr_g.iters].astype(np.float64)
+        b = getattr(tr_c, key)[:tr_c.iters].astype(np.float64)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        log(f"  {key} card vs CPU: max rel {rel:.3e} (tol {TOL_TRACE:.0e})")
+        if not (np.isfinite(rel) and rel <= TOL_TRACE):
+            raise AssertionError(f"{key} differs between card and CPU: {rel}")
+    log(f"  card vs CPU at full size: {time.perf_counter() - t0:.1f} s")
+
+    # ms per LM iteration: the same solve, timed with CUDA events
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = lm.damping_iter(R0t, p0t, f, balm_tpu_torch.SolverConfig())
+    end.record()
+    torch.cuda.synchronize()
+    ms_iter = start.elapsed_time(end) / max(res.iters, 1)
+    log(f"  LM solve: {res.iters} iterations, {ms_iter:.3f} ms per "
+        f"iteration (CUDA events, packing included) on {card}")
+
+    ok = (launches["csum"] > 0 and launches["rows"] > 0
+          and np.isfinite(info["residual"])
+          and info["residual"] < info["residual_initial"]
+          and info["status"] == "ok" and rs1[1] < rs0[1]
+          and info["num_planes"] >= 4096)
+    if not ok:
+        raise AssertionError(f"slice check failed: launches {launches}, "
+                             f"info {info}, rsme {rs0} -> {rs1}")
+
+    kernels = []
+    for name, replaces in (("csum", "balm_tpu/ops/pallas_evaluate.py:115"),
+                           ("rows", "balm_tpu/ops/pallas_evaluate.py:1126")):
+        ms, plain_ms = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "balm_tpu_torch/csrc/packed_kernels.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": recs[name][name]["abs"],
+            "err_by_output": recs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
+            "bound_by": bnd[name]["bound_by"], "library_ms": None})
+    log(f"  total {time.perf_counter() - t_all:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
