@@ -1,11 +1,13 @@
-"""Build and bind the CUDA kernels of csrc/packed_kernels.cu.
+"""Build and bind the CUDA kernels of csrc/ (B1 and B2 in
+packed_kernels.cu, B4, B5 and B6 in hess_kernels.cu, both including the
+shared per-element math of rows_point.cuh).
 
 One `nvcc` call builds one shared library with a plain C interface,
 loaded with ctypes (no PyTorch headers, no torch.utils.cpp_extension):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v
-         -o _build/libbalm_kernels.so csrc/packed_kernels.cu
+         -Xcompiler -fPIC -Xptxas -v -o _build/libbalm_kernels.so
+         csrc/packed_kernels.cu csrc/hess_kernels.cu
 
 nvcc contracts products and sums into FMAs as it likes; the one place
 where that matters, the translation t = R b + t_w - c that cancels most
@@ -14,7 +16,8 @@ each step explicitly in the source (`shifted_t`).
 -Xptxas -v reports registers and spills into the build log.
 
 The library goes to balm_tpu_torch/_build/ (ignored by git) and is
-rebuilt only when the SHA-256 of the source and flags changes (the hash
+rebuilt only when the SHA-256 of the sources (every file of csrc/,
+headers included) and flags changes (the hash
 is stamped beside it).  The build writes a temporary file and renames it, so a
 concurrent process never loads a half-written library.  A failed build
 raises with nvcc's stderr.  Nothing here runs at import time.
@@ -35,7 +38,8 @@ import time
 import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
-SRC = _PKG / "csrc" / "packed_kernels.cu"
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "packed_kernels.cu", CSRC / "hess_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libbalm_kernels.so"
 _STAMP = BUILD_DIR / "libbalm_kernels.sha256"
@@ -67,9 +71,11 @@ FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
 
 
 def _source_hash() -> str:
-    """SHA-256 of the source and the flags it is built with."""
-    return hashlib.sha256(SRC.read_bytes()
-                          + " ".join(FLAGS).encode()).hexdigest()
+    """SHA-256 of every source and header and the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return h.hexdigest()
 
 
 def build(force: bool = False) -> dict:
@@ -83,7 +89,7 @@ def build(force: bool = False) -> dict:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, str(SRC)]
+    cmd = [nvcc_path(), *FLAGS, "-o", tmp, *map(str, SOURCES)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -118,6 +124,14 @@ def lib():
         h.balm_rows_packed.restype = cint
         h.balm_rows_block_planes.argtypes = []
         h.balm_rows_block_planes.restype = cint
+        h.balm_hess_v1_splits.argtypes = [i64, i64, cint]
+        h.balm_hess_v1_splits.restype = cint
+        h.balm_hess_v1.argtypes = [vp] * 9 + [i64, i64, i64, cint, vp]
+        h.balm_hess_v1.restype = cint
+        h.balm_hess_v2.argtypes = [vp] * 7 + [i64, i64, cint, vp]
+        h.balm_hess_v2.restype = cint
+        h.balm_hess_v3.argtypes = [vp] * 7 + [i64, i64, i64, cint, vp]
+        h.balm_hess_v3.restype = cint
         h.balm_error_string.argtypes = [cint]
         h.balm_error_string.restype = ctypes.c_char_p
         _lib = h

@@ -1,8 +1,9 @@
 """Packed channel-major factor layout for the CUDA evaluation path.
 
 Counterpart: balm_tpu/ops/packed.py (PackedFactors, pack_factors :72,
-csum_to_cov :118, pad_poses :154).  The same information as PlaneFactors,
-re-laid-out channel-major with the PLANE axis contiguous:
+csum_to_cov :118, pad_planes :138, pad_poses :154).  The same
+information as PlaneFactors, re-laid-out channel-major with the PLANE
+axis contiguous:
 
     mom  (Wp, 10, Gp)  per-scan channels (pxx,pxy,pxz,pyy,pyz,pzz,
                        bx,by,bz, n): recentered body moment vech(P),
@@ -112,6 +113,16 @@ def csum_to_cov(out, coe):
     row2 = torch.stack([c[2], c[4], c[5]], dim=-1)
     cov = torch.stack([row0, row1, row2], dim=-2)         # (Gp, 3, 3)
     return N, Ns, valid, vbar, cov
+
+
+def pad_planes(pk: PackedFactors, multiple: int) -> PackedFactors:
+    """Extend the plane axis with zeros to a multiple of `multiple`
+    (padding planes carry n = coe = 0 and contribute exactly zero)."""
+    ext = _round_up(pk.gp, multiple) - pk.gp
+    if ext == 0:
+        return pk
+    pad = lambda t: torch.nn.functional.pad(t, (0, ext)).contiguous()
+    return PackedFactors(*map(pad, pk))
 
 
 def pad_poses(R, p, Wp):

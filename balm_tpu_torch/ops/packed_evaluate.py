@@ -1,22 +1,29 @@
-"""Packed plane-factor evaluate: the two CUDA kernels and their glue.
+"""Packed plane-factor evaluate: the CUDA kernels and their glue.
 
 Counterpart: balm_tpu/ops/pallas_evaluate.py — csum_packed (:180,
 Pallas `_csum_kernel` :115, XLA form `csum_packed_xla` :229),
 rows_packed_pallas (:1155, Pallas `_rows_only_kernel` :1126, math of
-`_rows_channels_xla` :789), `_aux_from_csum` (:947), hess_packed_hybrid
-(:1214), evaluate_packed_jw (:1232) and residual_only_packed (:1030).
+`_rows_channels_xla` :789), the fused-Hessian kernels hess_packed (:444,
+Pallas `_hess_kernel` :284), hess_packed_v2 (:552, `_hess_kernel_v2`
+:491) and hess_packed_v3 (:697, `_hess_kernel_v3` :604),
+hess_packed_xla (:912), `_aux_from_csum` (:947), evaluate_packed (:970),
+residual_only_packed (:1030), `_chunk_pk`, evaluate_packed_chunked and
+residual_only_packed_chunked (:1042-1123), hess_packed_hybrid (:1214)
+and evaluate_packed_jw (:1232).
 
-Each kernel wrapper (`csum_packed`, `rows_packed`) takes its plain
-PyTorch version (`*_plain`, beside it) only for tensors on the CPU.  For
-CUDA tensors it checks dtype, shape and contiguity, launches the CUDA
-kernel of csrc/packed_kernels.cu on the current stream, counts the
-launch in its `launches` attribute, or raises: there is no fallback.
+Each kernel wrapper (`csum_packed`, `rows_packed`, `hess_packed`,
+`hess_packed_v2`, `hess_pairs_v3`) takes its plain PyTorch version
+(`*_plain`, beside it) only for tensors on the CPU.  For CUDA tensors it
+checks dtype, shape and contiguity, launches its CUDA kernel (csrc/) on
+the current stream, counts the launch in its `launches` attribute, or
+raises: there is no fallback.
 
-The Hessian product H = sum_k M_k M_k^T of the hybrid path is a plain
-matrix product outside any kernel (torch.matmul, as the JAX package
+The Hessian product H = sum_k M_k M_k^T of the hybrid and xla paths is a
+plain matrix product outside any kernel (torch.matmul, as the JAX package
 leaves it to XLA's dot), run in full fp32: TF32 is switched off around
 it, because TF32's 10-bit mantissa on moment math is the same silent
-corruption as one bf16 pass on the TPU's MXU.
+corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4-B6
+compute the same product inside their own bodies with fp32 FMA.
 """
 
 from __future__ import annotations
@@ -28,6 +35,10 @@ import torch
 from . import _cuda
 from .eigh3 import eigh3, eigvals3
 from .packed import PackedFactors, csum_to_cov, pad_poses
+
+# pose rows per block of the pose-block-pair grid of hess_packed_v3 (the
+# JAX package's BW_HESS3, pallas_evaluate.py:600)
+BW_HESS3 = 128
 
 # aux channels: 0-2 u0 | 3-5 u1 | 6-8 u2 | 9-11 vbar | 12 invN | 13 sqrt_wa
 #               | 14 sqrt_w1 | 15 sqrt_w2 | 16 coe(masked)
@@ -66,6 +77,10 @@ def _check(name, t, shape):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _empty(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
 
 
 def _packed_shapes(pose, mom):
@@ -360,18 +375,199 @@ def _hess_precision(hess_precision):
     raise ValueError(f"unknown hess_precision {hess_precision!r}")
 
 
+def _split(split):
+    """The fused kernels' `split`: 'f32' and 'bf16x3' both run the exact
+    fp32 product.  bf16x3 is the TPU's way to approach f32 on a bf16
+    MXU; fp32 FMA on the card is the product it approximates."""
+    if split not in ("f32", "bf16x3"):
+        raise ValueError(f"unknown split {split!r}")
+
+
+def _jw_product(rows):
+    """rows (3, 6, Wp, Gp) -> H = sum_k M_k M_k^T (6Wp, 6Wp), fp32,
+    (j, w)-major: the views M_k (6Wp, Gp) are layout-free."""
+    Wp, Gp = rows.shape[2], rows.shape[3]
+    M = rows.view(3, 6 * Wp, Gp)
+    with fp32_matmul():
+        H = torch.mm(M[0], M[0].T)
+        H.addmm_(M[1], M[1].T)
+        H.addmm_(M[2], M[2].T)
+    return H
+
+
 def hess_packed_hybrid(pose, mom, cen, aux, *, hess_precision=None):
     """-> (Htilde (6Wp, 6Wp) in (j, w)-major order, J (Wp, 6),
     D (Wp, 36)): the `rows` kernel, then H = sum_k M_k M_k^T in fp32."""
     _hess_precision(hess_precision)
     rows, J, D = rows_packed(pose, mom, cen, aux)
-    Wp, Gp = mom.shape[0], mom.shape[2]
-    M = rows.view(3, 6 * Wp, Gp)            # layout-free (j, w)-major
-    with fp32_matmul():
-        H = torch.mm(M[0], M[0].T)
-        H.addmm_(M[1], M[1].T)
-        H.addmm_(M[2], M[2].T)
+    return _jw_product(rows), J, D
+
+
+def hess_packed_xla(pose, mom, cen, aux, *, hess_precision=None):
+    """The XLA formulation: -> (Htilde (6Wp, 6Wp) in (w, j)-MAJOR order,
+    J (Wp, 6), D (Wp, 36)).  The `rows` kernel and the fp32 product as in
+    hess_packed_hybrid, then Htilde (9.4 MB at Wp = 256) is permuted to
+    (w, j)-major order, not the rows (212 MB)."""
+    H, J, D = hess_packed_hybrid(pose, mom, cen, aux,
+                                 hess_precision=hess_precision)
+    Wp = mom.shape[0]
+    H = H.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(6 * Wp, 6 * Wp)
     return H, J, D
+
+
+# --------------------------------------------------------------------------
+# B4, B5, B6: fused rank rows + Hessian product
+# --------------------------------------------------------------------------
+
+def _hess_checked(pose, mom, cen, aux):
+    Wp, Gp = _packed_shapes(pose, mom)
+    _check("pose", pose, (Wp, 12))
+    _check("mom", mom, (Wp, 10, Gp))
+    _check("cen", cen, (3, Gp))
+    _check("aux", aux, (AUX_CH, Gp))
+    return Wp, Gp
+
+
+def hess_packed_plain(pose, mom, cen, aux):
+    """Plain version of the B4 and B6 kernels (they compute one function):
+    -> (Htilde (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)) from the
+    plain rank rows and an fp32 product."""
+    rows, J, D = rows_packed_plain(pose, mom, cen, aux)
+    return _jw_product(rows), J, D
+
+
+def hess_packed(pose, mom, cen, aux):
+    """B6 wrapper, the v1 fused kernel (`_hess_kernel`): -> (Htilde
+    (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)).  CUDA tensors: the
+    `hess_v1` kernel (partial Htilde per plane split, summed in split
+    order) with the exact fp32 product, as the TPU kernel's HIGHEST dot;
+    CPU tensors: hess_packed_plain."""
+    if _on_cpu(pose, mom, cen, aux):
+        return hess_packed_plain(pose, mom, cen, aux)
+    Wp, Gp = _hess_checked(pose, mom, cen, aux)
+    lib = _cuda.lib()
+    dev = mom.device
+    nsplit = lib.balm_hess_v1_splits(Wp, Gp, dev.index)
+    if nsplit < 1:
+        raise RuntimeError("hess_v1: could not read the SM count")
+    n6 = 6 * Wp
+    Hpart, JDpart = _empty(dev, nsplit, n6, n6), _empty(dev, nsplit, Wp, 42)
+    H, J, D = _empty(dev, n6, n6), _empty(dev, Wp, 6), _empty(dev, Wp, 36)
+    rc = lib.balm_hess_v1(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        Hpart.data_ptr(), JDpart.data_ptr(), H.data_ptr(), J.data_ptr(),
+        D.data_ptr(), Wp, Gp, nsplit, dev.index, _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "hess_v1")
+    hess_packed.launches += 1
+    return H, J, D
+
+
+hess_packed.launches = 0
+
+
+def hess_packed_v2(pose, mom, cen, aux, *, split="bf16x3"):
+    """B4 wrapper, the v2 fused kernel (`_hess_kernel_v2`): -> (Htilde
+    (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)).  CUDA tensors: the
+    `hess_v2` kernel, one block per output tile walking the whole plane
+    axis; CPU tensors: hess_packed_plain.  `split` 'f32' and 'bf16x3'
+    both run the exact fp32 product (see _split)."""
+    _split(split)
+    if _on_cpu(pose, mom, cen, aux):
+        return hess_packed_plain(pose, mom, cen, aux)
+    Wp, Gp = _hess_checked(pose, mom, cen, aux)
+    dev = mom.device
+    n6 = 6 * Wp
+    H, J, D = _empty(dev, n6, n6), _empty(dev, Wp, 6), _empty(dev, Wp, 36)
+    rc = _cuda.lib().balm_hess_v2(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        H.data_ptr(), J.data_ptr(), D.data_ptr(), Wp, Gp, dev.index,
+        _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "hess_v2")
+    hess_packed_v2.launches += 1
+    return H, J, D
+
+
+hess_packed_v2.launches = 0
+
+
+def _pairs(nB):
+    """Lower-triangle pose-block pairs (I, J), I >= J, in grid order."""
+    return [(i, j) for i in range(nB) for j in range(i + 1)]
+
+
+def hess_pairs_v3_plain(pose, mom, cen, aux, bw):
+    """Plain version of the B5 kernel: -> (raw pair blocks
+    (n_pairs * 6bw, 6bw), each (j, w)-major inside, J (WpB, 6),
+    D (WpB, 36)) with WpB = bw * ceil(Wp / bw); scans past Wp are zero."""
+    rows, J, D = rows_packed_plain(pose, mom, cen, aux)
+    Wp, Gp = mom.shape[0], mom.shape[2]
+    nB = -(-Wp // bw)
+    WpB = nB * bw
+    rows = torch.nn.functional.pad(rows, (0, 0, 0, WpB - Wp))
+    blocks = []
+    with fp32_matmul():
+        for I, J_ in _pairs(nB):
+            Mi = rows[:, :, I * bw:(I + 1) * bw].reshape(3, 6 * bw, Gp)
+            Mj = rows[:, :, J_ * bw:(J_ + 1) * bw].reshape(3, 6 * bw, Gp)
+            blocks.append(sum(Mi[k] @ Mj[k].T for k in range(3)))
+    pad_w = lambda t: torch.nn.functional.pad(t, (0, 0, 0, WpB - Wp))
+    return torch.cat(blocks), pad_w(J), pad_w(D)
+
+
+def hess_pairs_v3(pose, mom, cen, aux, bw):
+    """B5 wrapper, the v3 kernel (`_hess_kernel_v3`): the raw pair blocks,
+    J and D of hess_pairs_v3_plain.  CUDA tensors: the `hess_v3` kernel,
+    each pair block split over blocks of threads that walk every plane;
+    CPU tensors: hess_pairs_v3_plain.  The exact fp32 product."""
+    if not 1 <= bw <= mom.shape[0]:
+        raise ValueError(f"bw must lie in [1, Wp={mom.shape[0]}], got {bw}")
+    if _on_cpu(pose, mom, cen, aux):
+        return hess_pairs_v3_plain(pose, mom, cen, aux, bw)
+    Wp, Gp = _hess_checked(pose, mom, cen, aux)
+    nB = -(-Wp // bw)
+    dev = mom.device
+    Hblk = _empty(dev, len(_pairs(nB)) * 6 * bw, 6 * bw)
+    J, D = _empty(dev, nB * bw, 6), _empty(dev, nB * bw, 36)
+    rc = _cuda.lib().balm_hess_v3(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        Hblk.data_ptr(), J.data_ptr(), D.data_ptr(), Wp, Gp, bw, dev.index,
+        _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "hess_v3")
+    hess_pairs_v3.launches += 1
+    return Hblk, J, D
+
+
+hess_pairs_v3.launches = 0
+
+
+def hess_packed_v3(pose, mom, cen, aux, *, split="bf16x3", bw=None):
+    """B5, the pose-block-pair form: -> (Htilde (6Wp, 6Wp) in (w, j)-MAJOR
+    order — the layout of hess_packed_xla — J (Wp, 6), D (Wp, 36)).
+
+    Pose blocks of Bw = min(bw or BW_HESS3, Wp) scans; the last block is
+    ragged when Bw does not divide Wp (zero rows, cropped here).  The JAX
+    wrapper's `bg` is a TPU plane tile and has no counterpart: the CUDA
+    kernel picks its own plane chunk.  `split` 'f32' and 'bf16x3' both run
+    the exact fp32 product (see _split).  The mirror of the lower-triangle
+    pair blocks into the full matrix is torch glue, the same for the
+    kernel and its plain version (pallas_evaluate.py:770-782).
+    """
+    _split(split)
+    Wp = mom.shape[0]
+    Bw = min(bw or BW_HESS3, Wp)
+    nB = -(-Wp // Bw)
+    WpB = nB * Bw
+    Hblk, J, D = hess_pairs_v3(pose, mom, cen, aux, Bw)
+    pairs = _pairs(nB)
+    Hp = Hblk.view(len(pairs), 6, Bw, 6, Bw)
+    Hb = Hblk.new_empty(nB, nB, 6, Bw, 6, Bw)
+    for q, (I, Jb) in enumerate(pairs):     # the diagonal pair last wins
+        Hb[I, Jb] = Hp[q]
+        Hb[Jb, I] = Hp[q].permute(2, 3, 0, 1)
+    # (I, J, j, w, j', w') -> (I, w, j, J, w', j'): (w, j)-major
+    H = Hb.permute(0, 3, 2, 1, 5, 4).reshape(WpB, 6, WpB, 6)
+    H = H[:Wp, :, :Wp, :].reshape(6 * Wp, 6 * Wp)
+    return H, J[:Wp], D[:Wp]
 
 
 def evaluate_packed_jw(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
@@ -393,11 +589,135 @@ def evaluate_packed_jw(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
     return res, J, H.reshape(6 * W, 6 * W)
 
 
-def residual_only_packed(R, p, pk: PackedFactors):
-    """Total cost sum_g coe_g lambda_0(g): the `csum` kernel + eigvals."""
-    pose = pad_poses(R, p, pk.wp).to(torch.float32)
+def pallas2_to_pallas3(Wp: int) -> bool:
+    """The JAX package's dispatch rule (pallas_evaluate.py:988-992):
+    impl='pallas2' runs as 'pallas3' when the v2 kernel's H window and dot
+    accumulator, 2 * 36 Wp^2 f32, exceed 100 MiB of the TPU's scoped
+    VMEM, i.e. from Wp = 608.  It is kept for parity; it is not a limit
+    of the B4 kernel on the card, whose shared memory use is fixed."""
+    return 2 * 36 * Wp * Wp * 4 > 100 * 1024 * 1024
+
+
+def _assemble_wj(Ht, Jt, Dt, W):
+    """(w, j)-major Htilde (6Wp, 6Wp), J (Wp, 6), D (Wp, 36) -> the
+    evaluate's J (6W,) and H (6W, 6W): crop, negate the rank part, add
+    the diagonal blocks."""
+    Wp = Jt.shape[0]
+    H = (-Ht.view(Wp, 6, Wp, 6)[:W, :, :W, :]).contiguous()
+    # H[w, a, w, b] += D[w, a, b]: the (0, 2) diagonal is a view of H
+    torch.diagonal(H, dim1=0, dim2=2).add_(
+        Dt[:W].reshape(W, 6, 6).permute(1, 2, 0))
+    return Jt[:W].reshape(6 * W), H.view(6 * W, 6 * W)
+
+
+# the evaluate's impls, as the JAX package names them
+IMPLS = ("xla", "hybrid", "pallas", "pallas2", "pallas3")
+
+
+def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
+                    impl: str = "xla", hess_precision=None):
+    """Residual, gradient (6W,) and Newton Hessian (6W, 6W) in (w, j)-major
+    order (index = w * 6 + j), by way of any of the JAX package's impls:
+
+      'xla'      B2 `rows` + fp32 torch.mm, Htilde permuted to (w, j)
+      'hybrid'   B2 `rows` + fp32 torch.mm, (j, w)-major
+      'pallas'   B6 fused kernel (hess_packed)
+      'pallas2'  B4 fused kernel (hess_packed_v2); 'pallas3' from
+                 Wp = 608 (pallas2_to_pallas3)
+      'pallas3'  B5 pose-block-pair kernel (hess_packed_v3)
+
+    The plane moments are the B1 `csum` kernel for every impl.
+    hess_precision: None, 'high' or 'highest' (all the exact fp32
+    product); 'bf16' raises (ROADMAP queue B3)."""
+    _hess_precision(hess_precision)
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    W = R.shape[0]
+    Wp = pk.wp
+    if impl == "pallas2" and pallas2_to_pallas3(Wp):
+        impl = "pallas3"
+    jw_major = {"hybrid": hess_packed_hybrid, "pallas": hess_packed,
+                "pallas2": hess_packed_v2}
+    pose = pad_poses(R, p, Wp).to(torch.float32)
+    csum = csum_packed(pose, pk.mom, pk.cen, pk.cfix)
+    res, aux = _aux_from_csum(csum, pk, gap_eps)
+    if impl == "xla":
+        Ht, Jt, Dt = hess_packed_xla(pose, pk.mom, pk.cen, aux)
+    elif impl == "pallas3":
+        Ht, Jt, Dt = hess_packed_v3(pose, pk.mom, pk.cen, aux, split="f32")
+    else:
+        Ht, Jt, Dt = jw_major[impl](pose, pk.mom, pk.cen, aux)
+        # (j, w)-major -> (w, j)-major
+        Ht = Ht.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(
+            6 * Wp, 6 * Wp)
+    J, H = _assemble_wj(Ht, Jt, Dt, W)
+    return res, J, H
+
+
+def _residual(pose, pk: PackedFactors):
     csum = csum_packed(pose, pk.mom, pk.cen, pk.cfix)
     N, Ns, valid, vbar, cov = csum_to_cov(csum, pk.coe)
     lam = eigvals3(cov)
     coew = torch.where(valid, pk.coe[0], 0.0)
     return torch.sum(coew * lam[:, 0])
+
+
+def residual_only_packed(R, p, pk: PackedFactors):
+    """Total cost sum_g coe_g lambda_0(g): the `csum` kernel + eigvals."""
+    return _residual(pad_poses(R, p, pk.wp).to(torch.float32), pk)
+
+
+# --------------------------------------------------------------------------
+# Chunked evaluate: a Python loop over plane chunks (lax.scan in JAX)
+# --------------------------------------------------------------------------
+
+def _chunk_pk(pk: PackedFactors, n_chunks: int):
+    """Split the plane axis into n_chunks PackedFactors of Gp / n_chunks
+    planes each.  Every slice is copied: the wrappers take contiguous
+    tensors only.  A solve makes the list once and passes it to the
+    chunked evaluates as `chunks`."""
+    Gp = pk.gp
+    if Gp % n_chunks:
+        raise ValueError(f"{n_chunks} chunks do not divide Gp={Gp}")
+    Gc = Gp // n_chunks
+    return [PackedFactors(*(t[..., i * Gc:(i + 1) * Gc].contiguous()
+                            for t in pk)) for i in range(n_chunks)]
+
+
+def evaluate_packed_chunked(R, p, pk: PackedFactors, *, n_chunks: int,
+                            gap_eps: float = 1e-9, hess_precision=None,
+                            chunks=None):
+    """evaluate_packed (impl 'xla') as a loop over plane chunks: per chunk
+    the `csum` kernel, eigh3/aux and hess_packed_xla (`rows` + the fp32
+    product); res, Htilde, J and D summed over chunks in order.  Same
+    (w, j)-major outputs as evaluate_packed.  chunks: `_chunk_pk(pk,
+    n_chunks)` made once by the caller, else made here."""
+    _hess_precision(hess_precision)
+    W = R.shape[0]
+    pose = pad_poses(R, p, pk.wp).to(torch.float32)
+    res = Ht = Jt = Dt = None
+    for pc in chunks or _chunk_pk(pk, n_chunks):
+        csum = csum_packed(pose, pc.mom, pc.cen, pc.cfix)
+        res_c, aux = _aux_from_csum(csum, pc, gap_eps)
+        H_c, J_c, D_c = hess_packed_xla(pose, pc.mom, pc.cen, aux)
+        if res is None:
+            res, Ht, Jt, Dt = res_c, H_c, J_c, D_c
+        else:
+            res = res + res_c
+            Ht.add_(H_c)
+            Jt.add_(J_c)
+            Dt.add_(D_c)
+    J, H = _assemble_wj(Ht, Jt, Dt, W)
+    return res, J, H
+
+
+def residual_only_packed_chunked(R, p, pk: PackedFactors, *,
+                                 n_chunks: int, chunks=None):
+    """residual_only_packed as a loop over plane chunks (`chunks` as in
+    evaluate_packed_chunked)."""
+    pose = pad_poses(R, p, pk.wp).to(torch.float32)
+    res = None
+    for pc in chunks or _chunk_pk(pk, n_chunks):
+        r = _residual(pose, pc)
+        res = r if res is None else res + r
+    return res

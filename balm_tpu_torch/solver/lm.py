@@ -19,8 +19,13 @@ device evaluates, factorizes, solves and computes the trial cost; the
 host then reads ONE small tensor per iteration — (res1, res2, q1,
 solve_ok) — and runs the scalar accept/damping/stop
 algebra in numpy float32, the precision the JAX loop carries it in.
-The evaluate is the packed hybrid path in (j, w)-major order: the `csum`
-and `rows` CUDA kernels on the card, their plain versions on the CPU.
+The evaluate is the packed path with the JAX package's `packed_impl`
+and `chunk_planes` options (lm.py:190-236): the hybrid evaluate in
+(j, w)-major order ('auto' and 'hybrid', the `csum` and `rows` kernels
+and an fp32 product), evaluate_packed in (w, j)-major order for 'xla',
+'pallas', 'pallas2' and 'pallas3' (the fused kernels B6, B4, B5), or the
+chunked evaluate when chunk_planes > 0.  The kernels run on the card,
+their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -74,7 +79,15 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
     """Run the LM loop.  R (W,3,3), p (W,3) float32 tensors; f:
     PlaneFactors with body-recentered float32 tensor leaves on the same
     device.  Only the packed backend with the left update exists in the
-    port (see ROADMAP.md for the rest)."""
+    port (see ROADMAP.md for the rest).
+
+    packed_impl: 'auto' (= 'hybrid': it gives the same result as every
+    other impl), 'hybrid', 'xla', 'pallas', 'pallas2' or 'pallas3' — see
+    ops.packed_evaluate.evaluate_packed.  chunk_planes > 0: the chunked
+    evaluate over plane chunks of that many planes (the plane axis is
+    padded to a multiple of it); it ignores packed_impl, as in JAX.
+    hess_precision 'high' and 'highest' both run the exact fp32 product;
+    'bf16' raises (ROADMAP queue B3)."""
     if backend == "pallas":
         backend = "packed"
     if backend != "packed":
@@ -89,12 +102,13 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
         raise NotImplementedError(f"linear_solver='pcg' is {_ROADMAP}")
     if linear_solver not in ("cholesky", "cholesky_nofallback", "lu"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
-    if chunk_planes:
-        raise NotImplementedError(f"chunk_planes is {_ROADMAP}")
-    if packed_impl not in ("auto", "hybrid"):
-        raise NotImplementedError(
-            f"packed_impl={packed_impl!r} is not ported yet (ROADMAP.md, "
-            f"queue B); the port runs the hybrid evaluate")
+    if packed_impl == "auto":
+        packed_impl = "hybrid"
+    if packed_impl not in pe.IMPLS:
+        raise ValueError(f"unknown packed_impl {packed_impl!r}")
+    if chunk_planes < 0:
+        raise ValueError(f"chunk_planes must be >= 0, got {chunk_planes}")
+    pe._hess_precision(hess_precision)
     if R.dtype != torch.float32:
         raise ValueError("packed backend is the float32 fast path")
 
@@ -103,13 +117,37 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
     eps = f32(np.finfo(np.float32).eps)
     degenerate = bool(int(f.planes_per_pose().min()) < cfg.min_planes_per_pose)
     pkf = packed_mod.pack_factors(f)     # once per solve, reused every iter
+    # (j, w)-major H only for the hybrid evaluate without chunking
+    # (balm_tpu/solver/lm.py:198-204)
+    jw = packed_impl == "hybrid" and chunk_planes == 0
 
-    def eval_full(R, p):
-        return pe.evaluate_packed_jw(R, p, pkf,
-                                     hess_precision=hess_precision)
+    if chunk_planes > 0:
+        pkf = packed_mod.pad_planes(pkf, chunk_planes)
+        n_chunks = pkf.gp // chunk_planes
+        chunks = pe._chunk_pk(pkf, n_chunks)   # copied once per solve
 
-    def eval_res(R, p):
-        return pe.residual_only_packed(R, p, pkf)
+        def eval_full(R, p):
+            return pe.evaluate_packed_chunked(
+                R, p, pkf, n_chunks=n_chunks, hess_precision=hess_precision,
+                chunks=chunks)
+
+        def eval_res(R, p):
+            return pe.residual_only_packed_chunked(
+                R, p, pkf, n_chunks=n_chunks, chunks=chunks)
+    else:
+        def eval_full(R, p):
+            if jw:
+                return pe.evaluate_packed_jw(R, p, pkf,
+                                             hess_precision=hess_precision)
+            return pe.evaluate_packed(R, p, pkf, impl=packed_impl,
+                                      hess_precision=hess_precision)
+
+        def eval_res(R, p):
+            return pe.residual_only_packed(R, p, pkf)
+
+    def per_pose(dx):
+        """dx (6W,) -> (W, 6) in the evaluate's layout."""
+        return dx.reshape(6, W).T if jw else dx.reshape(W, 6)
 
     t_res1 = np.full(cfg.max_iters, np.nan, f32)
     t_res2 = np.full(cfg.max_iters, np.nan, f32)
@@ -131,8 +169,7 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
         Dd = D + tau
         A = H + float(u) * torch.diag(Dd)
         dx, ok = _solve(A, -J, linear_solver)
-        dxw = dx.reshape(6, W).T            # (j, w)-major -> (W, 6)
-        Rt, pt = lie.se3_left_update(R, p, dxw)
+        Rt, pt = lie.se3_left_update(R, p, per_pose(dx))
         q1 = 0.5 * torch.dot(dx, float(u) * Dd * dx - J)
         res2_d = eval_res(Rt, pt)
         vals = torch.stack([res1_d, res2_d, q1, ok]).cpu().numpy()
@@ -140,7 +177,7 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
             # failed or non-finite Cholesky step (indefinite H + uD): this
             # iteration's step from the pivoted LU solve (lm.py:329-342)
             dx = torch.linalg.solve(A, -J)
-            Rt, pt = lie.se3_left_update(R, p, dx.reshape(6, W).T)
+            Rt, pt = lie.se3_left_update(R, p, per_pose(dx))
             q1 = 0.5 * torch.dot(dx, float(u) * Dd * dx - J)
             res2_d = eval_res(Rt, pt)
             vals = torch.stack([res1_d, res2_d, q1]).cpu().numpy()

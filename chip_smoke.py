@@ -8,14 +8,22 @@ imports neither jax nor balm_tpu.  Phases, each printed on a flushed line
 as it starts and ends; any failure raises and the script exits non-zero:
 
   1. device  - the card's name and power limit (nvidia-smi)
-  2. build   - one nvcc call for csrc/packed_kernels.cu (sm_90a)
+  2. build   - one nvcc call for csrc/packed_kernels.cu and
+               csrc/hess_kernels.cu (sm_90a)
   3. scene   - a synthetic scene from --seed: 256 scans along a smooth
                trajectory through a field of planar patches, ~30 k points
                each, poses perturbed with the virtual protocol's noise
                (2 deg, 0.1 m); voxelized, recentered and packed
   4. kernels - each CUDA kernel against its plain PyTorch version on the
                card, at the slice's shape and at a ragged small shape
-               (W=13, G=300), with CUDA-event times and the bytes bound
+               (W=13, G=300), and B5 `hess_v3` with several pose blocks
+               (W=24, bw 8 and 16, the last block ragged at 16), and the
+               fused-Hessian kernels on random moments at the slice's
+               shape (W=256, G=11520), where fp32 accumulation drift
+               would show; CUDA-event
+               times beside each kernel's bound, its plain version's time
+               and, for the fused-Hessian kernels, the library time of the
+               same product (three fp32 torch.mm on B2's rows)
   5. small   - optimize_poses on the card against the plain CPU path on a
                small scene
   6. slice   - the main path: optimize_poses(..., backend='packed') on
@@ -25,11 +33,20 @@ as it starts and ends; any failure raises and the script exits non-zero:
                H) and the first SLICE_ITERS LM iterations on the card
                against the plain CPU path; ms per LM iteration (CUDA
                events)
+  7. slice 2 - the fused-Hessian evaluate at the same size: damping_iter
+               with packed_impl 'pallas2' (B4), 'pallas3' (B5), 'pallas'
+               (B6) and 'xla', and with chunk_planes=2048, each with every
+               launch count set to 0 just before and read just after, held
+               against the hybrid solve of phase 6; one evaluate_packed per
+               impl against evaluate_packed_jw; ms per LM iteration
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
-the kernel's main output (csum's moments, rows' rank rows), and
+the kernel's main output (csum's moments, rows' rank rows, the Hessian
+kernels' Htilde), `launches` counts the launches in the run of the
+kernel's own path (phase 6 for csum and rows, phase 7 for the rest), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
-error of every output.  The last line is
+error of every output (for the fused-Hessian kernels also under
+"random_W256_G11520", their errors on the random moments of phase 4).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -58,6 +75,11 @@ ROWS_FLOPS_PER_WG = 870
 # another order (8 scan lanes, plane tiles) than PyTorch's
 # reductions, and cuBLAS forms sum_w R P R^T in the plain csum
 TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
+# the fused-Hessian kernels against their plain versions (rows + fp32
+# torch.mm): Htilde at the bar of tests/test_pallas_evaluate.py:158-159 —
+# each output entry is a sum over 3 Gp terms, taken by the kernel in
+# plane-chunk order with FMA and by cuBLAS in its own blocking
+TOL_HESS = {"H": 1e-5, "J": 1e-4, "D": 1e-4}
 # the card against the plain CPU path at the slice's full size (phase 6).
 # The evaluate at the perturbed poses: res relative to itself, J and H
 # relative to their max|.| (the bars of tests/test_pallas_evaluate.py:
@@ -69,6 +91,13 @@ TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
 TOL_EVAL = {"res": 1e-5, "J": 1e-4, "H": 1e-4}
 TOL_TRACE = 1e-3
 SLICE_ITERS = 3
+# slice 2's paths (phase 7): name -> damping_iter options, and the kernel
+# counted on each
+SLICE2 = (("pallas2", dict(packed_impl="pallas2"), "hess_v2"),
+          ("pallas3", dict(packed_impl="pallas3"), "hess_v3"),
+          ("pallas", dict(packed_impl="pallas"), "hess_v1"),
+          ("xla", dict(packed_impl="xla"), "rows"),
+          ("chunk2048", dict(chunk_planes=2048), "rows"))
 SCANS = 256
 POINTS_PER_SCAN = 30000
 VOXEL = 2.0
@@ -237,6 +266,35 @@ def check_kernels(pose, pk, tag):
     return out, aux
 
 
+def check_hess(pose, pk, aux, tag, bws=(None,)):
+    """B6, B4 and B5 against their plain versions on the same CUDA
+    inputs; returns records keyed by kernel name."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    Wp, Gp = pk.wp, pk.gp
+    args = (pose, pk.mom, pk.cen, aux)
+    out = {}
+
+    def rec(name, got, ref):
+        return {o: compare(f"[{tag}] {name}/{o} Wp={Wp} Gp={Gp}", a, b,
+                           TOL_HESS[o])
+                for o, a, b in zip(("H", "J", "D"), got, ref)}
+
+    ref = pe.hess_packed_plain(*args)
+    out["hess_v1"] = rec("hess_v1", pe.hess_packed(*args), ref)
+    out["hess_v2"] = rec("hess_v2", pe.hess_packed_v2(*args), ref)
+    del ref
+    for bw in bws:
+        Bw = min(bw or pe.BW_HESS3, Wp)
+        got = pe.hess_pairs_v3(*args, Bw)
+        ref = pe.hess_pairs_v3_plain(*args, Bw)
+        torch.cuda.synchronize()
+        out["hess_v3"] = rec(f"hess_v3 bw={Bw}", got, ref)
+    return out
+
+
 def compare(what, got, ref, tol):
     """max|got - ref| and that over max|ref|; raises above `tol` (on the
     relative figure).  Both may lie on different devices."""
@@ -258,9 +316,32 @@ def bounds(Wp, Gp):
     csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
     rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
                       + 42 * Wp)
+    # the fused-Hessian kernels: inputs once, Htilde (or B5's pair
+    # blocks), J and D once; one rows pass and the fp32 product over the
+    # output entries that the symmetric Htilde needs: the lower triangle
+    # of the 6Wp x 6Wp for B4 and B6; for B5 its off-diagonal pair blocks
+    # in full and the lower triangles of its nB diagonal ones.  Each entry
+    # is a dot product of 3 Gp terms (2 flops a term)
+    in_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp)
+    Bw = min(128, Wp)
+    nB = -(-Wp // Bw)
+    n_pairs = nB * (nB + 1) // 2
+    tri = lambda n: n * (n + 1) // 2
+    full = 2 * tri(6 * Wp) * 3 * Gp
+    pairs = 2 * ((n_pairs - nB) * (6 * Bw) ** 2
+                 + nB * tri(6 * Bw)) * 3 * Gp
+    rows_pass = ROWS_FLOPS_PER_WG * wg
     res = {}
-    for name, nbytes, flops in (("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg),
-                                ("rows", rows_bytes, ROWS_FLOPS_PER_WG * wg)):
+    for name, nbytes, flops in (
+            ("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg),
+            ("rows", rows_bytes, rows_pass),
+            ("hess_v1", in_bytes + 4 * (36 * Wp * Wp + 42 * Wp),
+             full + rows_pass),
+            ("hess_v2", in_bytes + 4 * (36 * Wp * Wp + 42 * Wp),
+             full + rows_pass),
+            ("hess_v3", in_bytes + 4 * (n_pairs * 36 * Bw * Bw
+                                        + 42 * nB * Bw),
+             pairs + rows_pass)):
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         tf = flops / PEAK_F32_FLOPS * 1e3
         res[name] = {"bound_ms": max(tb, tf),
@@ -279,7 +360,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/6 device")
+    log("phase 1/7 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -306,7 +387,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/6 build")
+    log("phase 2/7 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -314,7 +395,7 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
     _cuda.lib()
 
-    log("phase 3/6 scene")
+    log("phase 3/7 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -331,31 +412,68 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/6 kernels vs plain")
+    log("phase 4/7 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
+    recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
-    check_kernels(pose_r, pk_r, "ragged W=13 G=300")
+    _, aux_r = check_kernels(pose_r, pk_r, "ragged W=13 G=300")
+    check_hess(pose_r, pk_r, aux_r, "ragged W=13 G=300")
+    pose_m, pk_m = ragged_problem(args.seed + 1, W=24, device=dev)
+    _, aux_m = check_kernels(pose_m, pk_m, "W=24 G=300")
+    check_hess(pose_m, pk_m, aux_m, "W=24 G=300 multi-block", bws=(8, 16))
+    del pose_r, pk_r, aux_r, pose_m, pk_m, aux_m
+    # random moments at the slice's shape: each Htilde entry sums 3 Gp =
+    # 34560 terms of spread magnitude, the case where fp32 accumulation
+    # drift shows (the slice scene's rows are too alike to show it)
+    pose_b, pk_b = ragged_problem(args.seed + 1, W=SCANS, G=11520,
+                                  device=dev)
+    _, aux_b = check_kernels(pose_b, pk_b, "random W=256 G=11520")
+    recs_b = check_hess(pose_b, pk_b, aux_b, "random W=256 G=11520")
+    for name, r in recs_b.items():
+        recs[name]["random_W256_G11520"] = r
+    del pose_b, pk_b, aux_b
     bnd = bounds(pk.wp, pk.gp)
-    n_launch0 = (pe.csum_packed.launches, pe.rows_packed.launches)
+    hargs = (pose, pk.mom, pk.cen, aux)
+    rows_b = pe.rows_packed(*hargs)[0]
+    counters = {"csum": pe.csum_packed, "rows": pe.rows_packed,
+                "hess_v1": pe.hess_packed, "hess_v2": pe.hess_packed_v2,
+                "hess_v3": pe.hess_pairs_v3}
+    n_launch0 = {k: c.launches for k, c in counters.items()}
+    Bw = min(pe.BW_HESS3, pk.wp)
+    # B4 and B6 share one plain version; the library call is the same
+    # product in three fp32 torch.mm on B2's rows (never on the port's
+    # fused paths)
+    plain_hess = time_ms(lambda: pe.hess_packed_plain(*hargs), iters=3,
+                         warmup=1)
+    lib_ms = time_ms(lambda: pe._jw_product(rows_b), iters=10)
+    del rows_b
     timing = {
         "csum": (time_ms(lambda: pe.csum_packed(pose, pk.mom, pk.cen,
                                                 pk.cfix)),
                  time_ms(lambda: pe.csum_packed_plain(pose, pk.mom, pk.cen,
-                                                      pk.cfix))),
-        "rows": (time_ms(lambda: pe.rows_packed(pose, pk.mom, pk.cen, aux)),
-                 time_ms(lambda: pe.rows_packed_plain(pose, pk.mom, pk.cen,
-                                                      aux), iters=5)),
+                                                      pk.cfix)), None),
+        "rows": (time_ms(lambda: pe.rows_packed(*hargs)),
+                 time_ms(lambda: pe.rows_packed_plain(*hargs), iters=5),
+                 None),
+        "hess_v1": (time_ms(lambda: pe.hess_packed(*hargs), iters=5),
+                    plain_hess, lib_ms),
+        "hess_v2": (time_ms(lambda: pe.hess_packed_v2(*hargs), iters=5),
+                    plain_hess, lib_ms),
+        "hess_v3": (time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw), iters=5),
+                    time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw),
+                            iters=3, warmup=1), lib_ms),
     }
-    if (pe.csum_packed.launches <= n_launch0[0]
-            or pe.rows_packed.launches <= n_launch0[1]):
+    if any(c.launches <= n_launch0[k] for k, c in counters.items()):
         raise AssertionError("the timed calls did not launch the kernels")
-    for name, (ms, plain_ms) in timing.items():
+    for name, (ms, plain_ms, l_ms) in timing.items():
         bb = bnd[name]
-        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}: {bb['bytes']} B, "
-            f"{bb['flops']} flop) at Wp={pk.wp} Gp={pk.gp} on {card}")
+        lib_txt = f", library {l_ms:.4f} ms" if l_ms is not None else ""
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"{lib_txt}, bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
+            f"{bb['bytes']} B, {bb['flops']} flop) at Wp={pk.wp} "
+            f"Gp={pk.gp} on {card}")
 
-    log("phase 5/6 small slice: card vs plain CPU path")
+    log("phase 5/7 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -373,17 +491,16 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/6 slice: optimize_poses on the card")
-    pe.csum_packed.launches = 0
-    pe.rows_packed.launches = 0
+    log("phase 6/7 slice: optimize_poses on the card")
+    for c in counters.values():
+        c.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     R1, p1, info = balm_tpu_torch.optimize_poses(
         scans, R0, p0, voxel=vcfg, backend="packed", verbose=True)
     torch.cuda.synchronize()
     t_slice = time.perf_counter() - t0
-    launches = {"csum": pe.csum_packed.launches,
-                "rows": pe.rows_packed.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     log(f"  info: {json.dumps(info)}")
     log(f"  launches in the main path: {launches}; optimize_poses "
         f"{t_slice:.3f} s wall (voxelize + solve)")
@@ -447,18 +564,83 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
+    log("phase 7/7 slice 2: the fused-Hessian evaluate on the card")
+    ref = res
+    perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
+    ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
+    J_ref, H_ref = ev_jw[1][perm], ev_jw[2][perm][:, perm]
+    for impl in ("xla", "pallas", "pallas2", "pallas3"):
+        ev = pe.evaluate_packed(R0t, p0t, pk, impl=impl)
+        compare(f"evaluate_packed({impl}) res vs jw", ev[0][None],
+                ev_jw[0][None], TOL_EVAL["res"])
+        compare(f"evaluate_packed({impl}) J vs jw", ev[1], J_ref,
+                TOL_EVAL["J"])
+        compare(f"evaluate_packed({impl}) H vs jw", ev[2], H_ref,
+                TOL_EVAL["H"])
+        del ev
+    del ev_jw, J_ref, H_ref
+    slice2 = {}
+    for name, kw, kernel in SLICE2:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        start.record()
+        out = lm.damping_iter(R0t, p0t, f, balm_tpu_torch.SolverConfig(),
+                              **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms_it = start.elapsed_time(end) / max(out.iters, 1)
+        got = {k: c.launches for k, c in counters.items()}
+        slice2[name] = got
+        log(f"  {name}: {out.iters} iterations, residual "
+            f"{out.trace_res1[0]:.6f} -> {out.residual:.6f}, "
+            f"{ms_it:.3f} ms per iteration (CUDA events) on {card}; "
+            f"launches {got}")
+        n = SLICE_ITERS
+        if not np.array_equal(out.trace_accept[:n], ref.trace_accept[:n]):
+            raise AssertionError(f"{name}: accept pattern differs from "
+                                 f"the hybrid solve")
+        for key in ("trace_res1", "trace_res2"):
+            a = getattr(out, key)[:n].astype(np.float64)
+            b = getattr(ref, key)[:n].astype(np.float64)
+            rel = float(np.max(np.abs(a - b) / np.abs(b)))
+            log(f"    {key} vs hybrid: max rel {rel:.3e} "
+                f"(tol {TOL_TRACE:.0e})")
+            if not (np.isfinite(rel) and rel <= TOL_TRACE):
+                raise AssertionError(f"{name}: {key} differs from the "
+                                     f"hybrid solve: {rel}")
+        used = out.trace_res1[:out.iters]
+        if not (np.all(np.isfinite(used)) and np.isfinite(out.residual)
+                and out.residual < used[0]):
+            raise AssertionError(f"{name}: the solve is not finite and "
+                                 f"falling")
+        fused = kernel.startswith("hess")
+        if got[kernel] <= 0 or got["csum"] <= 0 or (
+                fused and got["rows"] != 0):
+            raise AssertionError(f"{name}: launches {got}")
+
     kernels = []
-    for name, replaces in (("csum", "balm_tpu/ops/pallas_evaluate.py:115"),
-                           ("rows", "balm_tpu/ops/pallas_evaluate.py:1126")):
-        ms, plain_ms = timing[name]
+    src1 = "balm_tpu_torch/csrc/packed_kernels.cu"
+    src2 = "balm_tpu_torch/csrc/hess_kernels.cu"
+    for name, src, replaces, main_key, path_launches in (
+            ("csum", src1, "balm_tpu/ops/pallas_evaluate.py:115", "csum",
+             launches),
+            ("rows", src1, "balm_tpu/ops/pallas_evaluate.py:1126", "rows",
+             launches),
+            ("hess_v2", src2, "balm_tpu/ops/pallas_evaluate.py:491", "H",
+             slice2["pallas2"]),
+            ("hess_v3", src2, "balm_tpu/ops/pallas_evaluate.py:604", "H",
+             slice2["pallas3"]),
+            ("hess_v1", src2, "balm_tpu/ops/pallas_evaluate.py:284", "H",
+             slice2["pallas"])):
+        ms, plain_ms, l_ms = timing[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "balm_tpu_torch/csrc/packed_kernels.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": recs[name][name]["abs"],
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": path_launches[name],
+            "max_abs_err": recs[name][main_key]["abs"],
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
-            "bound_by": bnd[name]["bound_by"], "library_ms": None})
+            "bound_by": bnd[name]["bound_by"], "library_ms": l_ms})
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,14 +2,17 @@
 """Where an LM solve of the PyTorch/CUDA port spends its time on the GPU.
 
     python3 scripts/profile_torch_slice.py [--seed 0] [--scans 256]
+        [--impls hybrid,xla,pallas,pallas2,pallas3,chunk2048] [--top 0]
 
 Builds chip_smoke.py's synthetic scene (256 scans, ~7.7 M points),
-voxelizes, packs, runs one warm-up `damping_iter`, then profiles a second
-one with torch.profiler (CPU + CUDA activities).  Prints every
-device-side operation by device time, then (last lines) the card, the
-solve's wall ms and iterations, the summed device time and the device
-idle share (1 - device time / wall time; one stream, so kernels do not
-overlap).  Needs one CUDA card.
+voxelizes and packs.  Then for each evaluate in --impls (a damping_iter
+packed_impl, or chunkN for chunk_planes=N) it runs one warm-up
+`damping_iter` and profiles a second one with torch.profiler (CPU + CUDA
+activities).  Per impl it prints the device-side operations by device
+time (the first --top of them; 0 = all), then the solve's wall ms and
+iterations, the summed device time and the device idle share (1 - device
+time / wall time; one stream, so kernels do not overlap).  The card's
+name and power limit come first.  Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -30,10 +33,44 @@ def _device_us(evt):
     return 0.0
 
 
+def profile_solve(impl, kw, R0t, p0t, f, num_planes, top):
+    import torch
+
+    from balm_tpu_torch.config import SolverConfig
+    from balm_tpu_torch.solver import lm
+
+    lm.damping_iter(R0t, p0t, f, SolverConfig(), **kw)      # warm-up
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        res = lm.damping_iter(R0t, p0t, f, SolverConfig(), **kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only (kernels, copies): the CPU ops that launch
+    # them carry the same time again
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = sorted(((_device_us(e), e.count, e.key)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == cuda
+                   and _device_us(e) > 0), reverse=True)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    print(f"== {impl} {kw}", flush=True)
+    for us, n, key in rows[:top or None]:
+        print(f"{us / 1e3:10.3f} ms {n:6d} x  {key[:120]}", flush=True)
+    print(f"{impl}: planes {num_planes}, iterations {res.iters}, solve wall "
+          f"{wall_ms:.3f} ms under the profiler, device time "
+          f"{dev_ms:.3f} ms, device idle share "
+          f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--scans", type=int, default=256)
+    ap.add_argument("--impls", default="hybrid")
+    ap.add_argument("--top", type=int, default=0)
     args = ap.parse_args(argv)
 
     import torch
@@ -42,9 +79,8 @@ def main(argv=None) -> int:
         print("FAIL: no CUDA device", flush=True)
         return 1
     import chip_smoke as cs
-    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.config import VoxelConfig
     from balm_tpu_torch.ops import factors as Fmod
-    from balm_tpu_torch.solver import lm
     from balm_tpu_torch.voxel import grid
 
     card = cs.card_line()
@@ -56,31 +92,11 @@ def main(argv=None) -> int:
                                 device=dev)
     R0t = torch.tensor(R0, dtype=torch.float32, device=dev)
     p0t = torch.tensor(p0, dtype=torch.float32, device=dev)
-    lm.damping_iter(R0t, p0t, f, SolverConfig())       # warm-up
-    torch.cuda.synchronize()
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        res = lm.damping_iter(R0t, p0t, f, SolverConfig())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies): the CPU ops that launch
-    # them carry the same time again
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = sorted(((_device_us(e), e.count, e.key)
-                   for e in prof.key_averages()
-                   if getattr(e, "device_type", None) == cuda
-                   and _device_us(e) > 0), reverse=True)
-    dev_ms = sum(r[0] for r in rows) / 1e3
-    for us, n, key in rows:
-        print(f"{us / 1e3:10.3f} ms {n:6d} x  {key[:120]}", flush=True)
     print(f"card: {card}", flush=True)
-    print(f"planes {vres.num_planes}, iterations {res.iters}, solve wall "
-          f"{wall_ms:.3f} ms under the profiler, device time "
-          f"{dev_ms:.3f} ms, device idle share "
-          f"{1.0 - dev_ms / wall_ms:.3f}", flush=True)
+    for impl in args.impls.split(","):
+        kw = (dict(chunk_planes=int(impl[5:])) if impl.startswith("chunk")
+              else dict(packed_impl=impl))
+        profile_solve(impl, kw, R0t, p0t, f, vres.num_planes, args.top)
     return 0
 
 

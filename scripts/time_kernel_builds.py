@@ -3,7 +3,7 @@
 
     python3 scripts/time_kernel_builds.py [--seed 0] [--iters 50]
 
-Builds csrc/packed_kernels.cu twice, with ops/_cuda.py's flags ('fma':
+Builds the kernels of csrc/ twice, with ops/_cuda.py's flags ('fma':
 nvcc contracts products and sums into FMAs everywhere except where the
 source rounds explicitly) and with -fmad=false added ('nofma': nothing
 contracted), each into its own library under balm_tpu_torch/_build/.

@@ -176,9 +176,11 @@ def test_unported_paths_raise():
     p = torch.tensor(p_gt, dtype=torch.float32)
     for kw in (dict(backend="xla"), dict(update="right"),
                dict(edges=object()), dict(linear_solver="pcg"),
-               dict(chunk_planes=512), dict(packed_impl="pallas2")):
+               dict(hess_precision="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.damping_iter(R, p, f, **kw)
+    with pytest.raises(ValueError, match="unknown packed_impl"):
+        tlm.damping_iter(R, p, f, packed_impl="pallas4")
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
