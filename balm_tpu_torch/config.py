@@ -70,8 +70,8 @@ class BalmConfig:
     voxel: VoxelConfig = VoxelConfig()
     solver: SolverConfig = SolverConfig()
     factor: FactorConfig = FactorConfig()
-    # compute dtype of the BA kernels; the port runs the float32 packed
-    # path (float64 is the JAX package's oracle mode)
+    # compute dtype of the BA: float64 runs ops/factors.py's evaluators,
+    # float32 also the packed path (optimize_poses' dtype argument)
     dtype: str = "float64"
 
     @property

@@ -1,25 +1,30 @@
 """Build and bind the CUDA kernels of csrc/ (B1 and B2 in
 packed_kernels.cu, B4, B5 and B6 in hess_kernels.cu, both including the
-shared per-element math of rows_point.cuh).
+shared per-element math of rows_point.cuh, and B7 in moments_kernels.cu).
 
-One `nvcc` call builds one shared library with a plain C interface,
-loaded with ctypes (no PyTorch headers, no torch.utils.cpp_extension):
+One `nvcc` process per source, all started together, compiles it to an
+object; one more links them into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, no
+torch.utils.cpp_extension):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/libbalm_kernels.so
-         csrc/packed_kernels.cu csrc/hess_kernels.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <stem>.o csrc/<stem>.cu
+         (for packed_kernels, hess_kernels and moments_kernels at once)
+    nvcc -shared -o _build/libbalm_kernels.so *.o
 
 nvcc contracts products and sums into FMAs as it likes; the one place
 where that matters, the translation t = R b + t_w - c that cancels most
 of its f32 bits on scenes hundreds of metres from the origin, rounds
 each step explicitly in the source (`shifted_t`).
--Xptxas -v reports registers and spills into the build log.
+-Xptxas -v reports registers and spills into the build log.  The wall
+time of the build is that of the slowest source, not their sum.
 
 The library goes to balm_tpu_torch/_build/ (ignored by git) and is
 rebuilt only when the SHA-256 of the sources (every file of csrc/,
 headers included) and flags changes (the hash
-is stamped beside it).  The build writes a temporary file and renames it, so a
-concurrent process never loads a half-written library.  A failed build
+is stamped beside it).  The build works in a temporary directory and
+renames the library into place, so a concurrent process never loads a
+half-written library.  A failed build
 raises with nvcc's stderr.  Nothing here runs at import time.
 """
 
@@ -39,7 +44,8 @@ import torch
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "packed_kernels.cu", CSRC / "hess_kernels.cu")
+SOURCES = (CSRC / "packed_kernels.cu", CSRC / "hess_kernels.cu",
+           CSRC / "moments_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libbalm_kernels.so"
 _STAMP = BUILD_DIR / "libbalm_kernels.sha256"
@@ -66,8 +72,9 @@ def nvcc_path() -> str:
     return found
 
 
-FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler",
-         "-fPIC", "-Xptxas", "-v"]
+# compile flags of each source (the link adds only -shared)
+FLAGS = ["-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v"]
 
 
 def _source_hash() -> str:
@@ -87,24 +94,40 @@ def build(force: bool = False) -> dict:
         log = _LOG.read_text() if _LOG.exists() else ""
         return {"seconds": 0.0, "rebuilt": False, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *FLAGS, "-o", tmp, *map(str, SOURCES)]
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     try:
+        jobs = []
+        for src in SOURCES:
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:          # wait for every compile
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): "
+                              f"{' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        so = os.path.join(tmpdir, LIB_PATH.name)
+        cmd = [nvcc, "-shared", "-o", so, *(obj for _, obj, _ in jobs)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}")
-        os.replace(tmp, LIB_PATH)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(so, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     seconds = time.perf_counter() - t0
-    _LOG.write_text(proc.stderr)
+    log = "".join(logs)
+    _LOG.write_text(log)
     _STAMP.write_text(digest)
-    return {"seconds": seconds, "rebuilt": True, "log": proc.stderr}
+    return {"seconds": seconds, "rebuilt": True, "log": log}
 
 
 def lib():
@@ -132,6 +155,10 @@ def lib():
         h.balm_hess_v2.restype = cint
         h.balm_hess_v3.argtypes = [vp] * 7 + [i64, i64, i64, cint, vp]
         h.balm_hess_v3.restype = cint
+        for name in ("balm_moments_f32", "balm_moments_f64"):
+            fn = getattr(h, name)
+            fn.argtypes = [vp] * 4 + [i64, i64, cint, vp]
+            fn.restype = cint
         h.balm_error_string.argtypes = [cint]
         h.balm_error_string.restype = ctypes.c_char_p
         _lib = h
@@ -149,3 +176,27 @@ def check_launch(rc: int, name: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current CUDA stream on t's device, as a raw handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(*ts) -> bool:
+    """True when every tensor lies on the CPU (a wrapper then runs its
+    plain version); False when every one lies on one CUDA device (it
+    launches its kernel); raises on anything else."""
+    kinds = {t.device.type for t in ts}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
+        return False
+    raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
+                     f"device, got {[str(t.device) for t in ts]}")
+
+
+def check(name, t, shape, dtype=torch.float32):
+    """Raise unless t has this dtype and shape and is contiguous."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,8 +1,12 @@
 """Batched SO(3)/SE(3) operations on torch tensors.
 
-Counterpart: balm_tpu/ops/lie.py (hat/vee :26-50, so3_exp :63, so3_log
-:76, pose_matrix/se3_left_update/gauge_fix :162-198); reference scalar
-helpers hku-mars/BALM include/tools.hpp:56-139.
+Counterpart: balm_tpu/ops/lie.py, the whole module (hat/vee :26-50,
+so3_exp :63, so3_log :76, so3_jr/so3_jr_inv :121-159, pose_matrix and
+the left/right updates :162-187, gauge_fix :190, the centering adjoints
+:200-247); reference scalar helpers hku-mars/BALM
+include/tools.hpp:56-139.  The products here are float32 or float64
+matrix products: callers on the solve path hold ops/precision.fp32_matmul
+around them.
 
 Conventions (same as the JAX package):
   * rotations are (..., 3, 3) matrices; translations (..., 3)
@@ -127,3 +131,82 @@ def gauge_fix(R, p, anchor=0):
     Rf = torch.einsum("ji,njk->nik", R0, R)  # R0^T @ R_n
     pf = torch.einsum("ji,nj->ni", R0, p - p0)
     return Rf, pf
+
+
+def so3_jr(w):
+    """Right Jacobian of SO(3) (reference jr, tools.hpp:108-122).
+    Batched (..., 3) -> (..., 3, 3)."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _SMALL
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2s)
+    ra = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    rb = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
+    axis = w / torch.where(small, torch.ones_like(theta), theta)[..., None]
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    aa = axis[..., :, None] * axis[..., None, :]
+    return (ra[..., None, None] * eye
+            + (1.0 - ra)[..., None, None] * aa
+            - (rb * theta)[..., None, None] * hat(axis))
+
+
+def so3_jr_inv(w):
+    """Inverse right Jacobian (reference jr_inv, tools.hpp:124-139), from
+    the axis-angle vector."""
+    theta2 = torch.sum(w * w, dim=-1)
+    small = theta2 < _SMALL
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(t2s)
+    half = 0.5 * theta
+    ctt = torch.where(small, 1.0 - theta2 / 12.0, half / torch.tan(half))
+    axis = w / torch.where(small, torch.ones_like(theta), theta)[..., None]
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    aa = axis[..., :, None] * axis[..., None, :]
+    return (ctt[..., None, None] * eye
+            + (1.0 - ctt)[..., None, None] * aa
+            + half[..., None, None] * hat(axis))
+
+
+def se3_right_update(R, p, dx):
+    """RIGHT boxplus: (R Exp(w), p + t) — the reference's alternative
+    update (bavoxel.hpp:1118-1120)."""
+    return R @ so3_exp(dx[..., :3]), p + dx[..., 3:]
+
+
+def adjoint_translation_vec(v6, c):
+    """Apply Adj([I, -c; 0, 1])^T to twist-space covectors:
+    (g_w, g_r) -> (g_w + c x g_r, g_r).  v6 (..., 6), c (..., 3)
+    broadcastable (balm_tpu/ops/lie.py:200)."""
+    gw = v6[..., :3]
+    gr = v6[..., 3:]
+    c = c.expand(gr.shape)
+    return torch.cat([gw + torch.linalg.cross(c, gr, dim=-1), gr], dim=-1)
+
+
+def centering_hessian_correction(g_rho, c):
+    """Second-order chain term of the left chart conjugated by the
+    centering shift (balm_tpu/ops/lie.py:213): the extra (3, 3) w-w block
+
+        0.5 (g c^T + c g^T) - (g . c) I,   g = shifted-frame g_rho.
+    """
+    outer = 0.5 * (g_rho[..., :, None] * c[..., None, :]
+                   + c[..., :, None] * g_rho[..., None, :])
+    dot = torch.sum(g_rho * c, dim=-1)
+    return outer - dot[..., None, None] * torch.eye(
+        3, dtype=g_rho.dtype, device=g_rho.device)
+
+
+def adjoint_translation_mat(M66, c):
+    """J^T M J with J = Adj(S) = [[I, 0], [-hat(c), I]] (twist order
+    (w, r)), the matrix form of adjoint_translation_vec
+    (balm_tpu/ops/lie.py:233).  M66 (..., 6, 6), c (..., 3)."""
+    hc = hat(c)
+    A = M66[..., :3, :3]
+    B = M66[..., :3, 3:]
+    C = M66[..., 3:, :3]
+    D = M66[..., 3:, 3:]
+    A2 = A - B @ hc
+    C2 = C - D @ hc
+    top = torch.cat([A2 + hc @ C2, B + hc @ D], dim=-1)
+    bot = torch.cat([C2, D], dim=-1)
+    return torch.cat([top, bot], dim=-2)

@@ -21,20 +21,21 @@ raises: there is no fallback.
 The Hessian product H = sum_k M_k M_k^T of the hybrid and xla paths is a
 plain matrix product outside any kernel (torch.matmul, as the JAX package
 leaves it to XLA's dot), run in full fp32: TF32 is switched off around
-it, because TF32's 10-bit mantissa on moment math is the same silent
+it (precision.fp32_matmul; the LM loop holds the same context), because TF32's 10-bit mantissa on moment math is the same silent
 corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4-B6
 compute the same product inside their own bodies with fp32 FMA.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from . import _cuda
+from ._cuda import check as _check
+from ._cuda import on_cpu as _on_cpu
 from .eigh3 import eigh3, eigvals3
 from .packed import PackedFactors, csum_to_cov, pad_poses
+from .precision import fp32_matmul
 
 # pose rows per block of the pose-block-pair grid of hess_packed_v3 (the
 # JAX package's BW_HESS3, pallas_evaluate.py:600)
@@ -44,39 +45,6 @@ BW_HESS3 = 128
 #               | 14 sqrt_w1 | 15 sqrt_w2 | 16 coe(masked)
 AUX_CH = 17
 _VECH = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
-
-
-@contextlib.contextmanager
-def fp32_matmul():
-    """Full-fp32 matrix products on the card (TF32 off), restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def _on_cpu(*ts) -> bool:
-    """True when every tensor lies on the CPU; False when every one lies
-    on a CUDA device; raises on anything else."""
-    kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in ts}) == 1:
-        return False
-    raise ValueError(f"tensors must all lie on the CPU or on one CUDA "
-                     f"device, got {[str(t.device) for t in ts]}")
-
-
-def _check(name, t, shape):
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _empty(dev, *shape):

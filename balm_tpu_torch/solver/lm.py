@@ -1,13 +1,14 @@
 """Damped Newton / Levenberg-Marquardt loop over SE(3) pose windows.
 
-Counterpart: balm_tpu/solver/lm.py — damping_iter (:69) for
-backend='packed', update='left' and the 'cholesky', 'cholesky_nofallback'
-and 'lu' solvers, with the same rules (reference BALM2::damping_iter,
-src/benchmark/bavoxel.hpp:1069-1166):
+Counterpart: balm_tpu/solver/lm.py — damping_iter (:69) with the
+'xla' and 'packed' backends, the left and right updates and the
+'cholesky', 'cholesky_nofallback' and 'lu' solvers, with the same rules
+(reference BALM2::damping_iter, src/benchmark/bavoxel.hpp:1069-1166):
 
   * solve (H + u D) dx = -J with D = diag(H) floored by the tau shift
     (lm.py:279-294)
-  * LEFT update R' = Exp(dw) R, p' = Exp(dw) p + dt
+  * LEFT update R' = Exp(dw) R, p' = Exp(dw) p + dt (or RIGHT:
+    R' = R Exp(dw), p' = p + dt)
   * gain ratio rho = (res1 - res2)/q1, q1 = 0.5 dx.(u D dx - J)
   * accept: u *= max(1/3, 1 - (2 rho - 1)^3), v = 2, recompute Hessian
   * reject: u *= v, v *= 2, reuse Hessian
@@ -17,15 +18,17 @@ src/benchmark/bavoxel.hpp:1069-1166):
 The JAX loop is one jitted while_loop; here the host drives it.  The
 device evaluates, factorizes, solves and computes the trial cost; the
 host then reads ONE small tensor per iteration — (res1, res2, q1,
-solve_ok) — and runs the scalar accept/damping/stop
-algebra in numpy float32, the precision the JAX loop carries it in.
-The evaluate is the packed path with the JAX package's `packed_impl`
-and `chunk_planes` options (lm.py:190-236): the hybrid evaluate in
-(j, w)-major order ('auto' and 'hybrid', the `csum` and `rows` kernels
-and an fp32 product), evaluate_packed in (w, j)-major order for 'xla',
-'pallas', 'pallas2' and 'pallas3' (the fused kernels B6, B4, B5), or the
-chunked evaluate when chunk_planes > 0.  The kernels run on the card,
-their plain versions on the CPU.
+solve_ok) — and runs the scalar accept/damping/stop algebra in numpy in
+the solve's dtype (float32 or float64), as the JAX loop carries it.
+The evaluate is either ops/factors.py's (backend 'xla': evaluate,
+evaluate_right for the right update, residual_only) or the packed path
+with the JAX package's `packed_impl` and `chunk_planes` options
+(lm.py:190-236): the hybrid evaluate in (j, w)-major order ('auto' and
+'hybrid', the `csum` and `rows` kernels and an fp32 product),
+evaluate_packed in (w, j)-major order for 'xla', 'pallas', 'pallas2'
+and 'pallas3' (the fused kernels B6, B4, B5), or the chunked evaluate
+when chunk_planes > 0.  The kernels run on the card, their plain
+versions on the CPU.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..ops import factors as F
 from ..ops import lie
 from ..ops import packed as packed_mod
 from ..ops import packed_evaluate as pe
+from ..ops.precision import fp32_matmul
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue A)"
 
@@ -71,31 +75,40 @@ def _solve(A, b, linear_solver):
 
 
 def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
-                 *, centered: bool = True, update: str = "left",
-                 linear_solver: str = "cholesky", backend: str = "packed",
-                 edges=None, hess_precision: str = "high",
-                 packed_impl: str = "auto",
+                 *, centered: bool = False, use_lapack_eigh: bool = False,
+                 update: str = "left", linear_solver: str = "cholesky",
+                 backend: str = "xla", edges=None,
+                 pcg_iters: int = 0, pcg_tol: float = 1e-6,
+                 hess_precision: str = "high", packed_impl: str = "auto",
                  chunk_planes: int = 0) -> LMResult:
-    """Run the LM loop.  R (W,3,3), p (W,3) float32 tensors; f:
-    PlaneFactors with body-recentered float32 tensor leaves on the same
-    device.  Only the packed backend with the left update exists in the
-    port (see ROADMAP.md for the rest).
+    """Run the LM loop.  R (W,3,3), p (W,3) float32 or float64 tensors;
+    f: PlaneFactors with tensor leaves on the same device.  The signature
+    and defaults are the JAX package's (balm_tpu/solver/lm.py:69-75).
 
-    packed_impl: 'auto' (= 'hybrid': it gives the same result as every
-    other impl), 'hybrid', 'xla', 'pallas', 'pallas2' or 'pallas3' — see
-    ops.packed_evaluate.evaluate_packed.  chunk_planes > 0: the chunked
-    evaluate over plane chunks of that many planes (the plane axis is
-    padded to a multiple of it); it ignores packed_impl, as in JAX.
-    hess_precision 'high' and 'highest' both run the exact fp32 product;
-    'bf16' raises (ROADMAP queue B3)."""
-    if backend == "pallas":
-        backend = "packed"
-    if backend != "packed":
-        raise NotImplementedError(f"backend={backend!r} is {_ROADMAP}")
-    if update != "left":
-        raise NotImplementedError(f"update={update!r} is {_ROADMAP}")
-    if not centered:
-        raise ValueError("packed backend requires centered=True")
+    backend: 'xla' (ops/factors.py's evaluators, any float dtype; with
+    centered=True the factors must be body-recentered and carry centers)
+    or 'packed' (alias 'pallas': the packed f32 path of
+    ops/packed_evaluate.py, which needs centered=True, the left update,
+    float32 and body-recentered factors).
+    update: 'left' (production, bavoxel.hpp:1122-1125) or 'right'
+    (bavoxel.hpp:1118-1120; raw moments, centered=False, 'xla').
+    use_lapack_eigh: torch.linalg.eigh in place of the closed-form 3x3
+    eigh ('xla' only).
+    packed_impl ('packed' only): 'auto' (= 'hybrid': it gives the same
+    result as every other impl), 'hybrid', 'xla', 'pallas', 'pallas2' or
+    'pallas3' — see ops.packed_evaluate.evaluate_packed.  chunk_planes > 0
+    ('packed' only): the chunked evaluate over plane chunks of that many
+    planes; it ignores packed_impl, as in JAX.  hess_precision ('packed'
+    only) 'high' and 'highest' both run the exact fp32 product; 'bf16'
+    raises (ROADMAP queue B3).  linear_solver 'pcg' (with pcg_iters,
+    pcg_tol) and pose-graph `edges` are not ported yet and raise.
+
+    The whole loop runs in full fp32 matrix products (TF32 off,
+    ops/precision.fp32_matmul), as the JAX loop pins float32."""
+    if update == "right" and centered:
+        raise ValueError("right update requires centered=False")
+    if update not in ("left", "right"):
+        raise ValueError(f"unknown update {update!r}")
     if edges is not None:
         raise NotImplementedError(f"pose-graph edges are {_ROADMAP}")
     if linear_solver == "pcg":
@@ -108,19 +121,31 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
         raise ValueError(f"unknown packed_impl {packed_impl!r}")
     if chunk_planes < 0:
         raise ValueError(f"chunk_planes must be >= 0, got {chunk_planes}")
-    pe._hess_precision(hess_precision)
-    if R.dtype != torch.float32:
-        raise ValueError("packed backend is the float32 fast path")
+    if backend == "pallas":
+        backend = "packed"
+    if backend == "packed":
+        if not centered or update != "left":
+            raise ValueError(
+                "packed backend requires centered=True, left update")
+        pe._hess_precision(hess_precision)
+        if R.dtype != torch.float32:
+            raise ValueError("packed backend is the float32 fast path")
+    elif backend == "large":
+        raise NotImplementedError(f"backend={backend!r} is {_ROADMAP}")
+    elif backend != "xla":
+        raise ValueError(f"unknown backend {backend!r}")
+    with fp32_matmul():
+        return _damping_iter(R, p, f, cfg, centered, use_lapack_eigh,
+                             update, linear_solver, backend,
+                             hess_precision, packed_impl, chunk_planes)
 
-    W = R.shape[0]
-    f32 = np.float32
-    eps = f32(np.finfo(np.float32).eps)
-    degenerate = bool(int(f.planes_per_pose().min()) < cfg.min_planes_per_pose)
+
+def _packed_evals(f, hess_precision, packed_impl, chunk_planes):
+    """(eval_full, eval_res, jw) of the packed backend: jw is True when
+    the evaluate gives H in (j, w)-major order (the hybrid evaluate
+    without chunking, balm_tpu/solver/lm.py:198-204)."""
     pkf = packed_mod.pack_factors(f)     # once per solve, reused every iter
-    # (j, w)-major H only for the hybrid evaluate without chunking
-    # (balm_tpu/solver/lm.py:198-204)
     jw = packed_impl == "hybrid" and chunk_planes == 0
-
     if chunk_planes > 0:
         pkf = packed_mod.pad_planes(pkf, chunk_planes)
         n_chunks = pkf.gp // chunk_planes
@@ -144,17 +169,53 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
 
         def eval_res(R, p):
             return pe.residual_only_packed(R, p, pkf)
+    return eval_full, eval_res, jw
+
+
+def _xla_evals(f, centered, use_lapack_eigh, update):
+    """(eval_full, eval_res) of the XLA-formulated evaluators
+    (balm_tpu/solver/lm.py:241-254)."""
+    def eval_full(R, p):
+        T = lie.pose_matrix(R, p)
+        if update == "right":
+            return F.evaluate_right(T, f, use_lapack_eigh=use_lapack_eigh)
+        return F.evaluate(T, f, centered=centered,
+                          use_lapack_eigh=use_lapack_eigh)
+
+    def eval_res(R, p):
+        return F.residual_only(lie.pose_matrix(R, p), f, centered=centered,
+                               use_lapack_eigh=use_lapack_eigh)
+    return eval_full, eval_res
+
+
+def _damping_iter(R, p, f, cfg, centered, use_lapack_eigh, update,
+                  linear_solver, backend, hess_precision, packed_impl,
+                  chunk_planes):
+    W = R.shape[0]
+    # the host carries the scalar algebra in the solve's dtype, as the
+    # JAX loop does (its ULP floor is ulp_tol * eps(dtype))
+    ft = np.float32 if R.dtype == torch.float32 else np.float64
+    eps = ft(np.finfo(ft).eps)
+    degenerate = bool(int(f.planes_per_pose().min()) < cfg.min_planes_per_pose)
+    if backend == "packed":
+        eval_full, eval_res, jw = _packed_evals(f, hess_precision,
+                                                packed_impl, chunk_planes)
+    else:
+        eval_full, eval_res = _xla_evals(f, centered, use_lapack_eigh,
+                                         update)
+        jw = False
+    step = lie.se3_right_update if update == "right" else lie.se3_left_update
 
     def per_pose(dx):
         """dx (6W,) -> (W, 6) in the evaluate's layout."""
         return dx.reshape(6, W).T if jw else dx.reshape(W, 6)
 
-    t_res1 = np.full(cfg.max_iters, np.nan, f32)
-    t_res2 = np.full(cfg.max_iters, np.nan, f32)
-    t_u = np.full(cfg.max_iters, np.nan, f32)
-    t_acc = np.full(cfg.max_iters, np.nan, f32)
-    u, v = f32(cfg.u_init), f32(cfg.v_init)
-    res1 = f32(0.0)
+    t_res1 = np.full(cfg.max_iters, np.nan, ft)
+    t_res2 = np.full(cfg.max_iters, np.nan, ft)
+    t_u = np.full(cfg.max_iters, np.nan, ft)
+    t_acc = np.full(cfg.max_iters, np.nan, ft)
+    u, v = ft(cfg.u_init), ft(cfg.v_init)
+    res1 = ft(0.0)
     res1_d = H = J = None
     calc_hess = True
     it = 0
@@ -169,7 +230,7 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
         Dd = D + tau
         A = H + float(u) * torch.diag(Dd)
         dx, ok = _solve(A, -J, linear_solver)
-        Rt, pt = lie.se3_left_update(R, p, per_pose(dx))
+        Rt, pt = step(R, p, per_pose(dx))
         q1 = 0.5 * torch.dot(dx, float(u) * Dd * dx - J)
         res2_d = eval_res(Rt, pt)
         vals = torch.stack([res1_d, res2_d, q1, ok]).cpu().numpy()
@@ -177,36 +238,36 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
             # failed or non-finite Cholesky step (indefinite H + uD): this
             # iteration's step from the pivoted LU solve (lm.py:329-342)
             dx = torch.linalg.solve(A, -J)
-            Rt, pt = lie.se3_left_update(R, p, per_pose(dx))
+            Rt, pt = step(R, p, per_pose(dx))
             q1 = 0.5 * torch.dot(dx, float(u) * Dd * dx - J)
             res2_d = eval_res(Rt, pt)
             vals = torch.stack([res1_d, res2_d, q1]).cpu().numpy()
             vals = np.concatenate([vals, np.ones(1, vals.dtype)])
-        res1, res2, q1h = f32(vals[0]), f32(vals[1]), f32(vals[2])
+        res1, res2, q1h = ft(vals[0]), ft(vals[1]), ft(vals[2])
         # solve_ok gates the stop tests (lm.py:295-313)
         solve_ok = bool(vals[3] != 0)
 
-        q = f32(res1 - res2)
+        q = ft(res1 - res2)
         accept = bool((q > 0) and np.isfinite(res2) and (res2 > 0))
         with np.errstate(all="ignore"):
-            rho = f32(q / q1h)
-            shrink = f32(f32(1.0) - f32(f32(2.0) * rho - f32(1.0)) ** 3)
-            u_acc = f32(u * np.maximum(f32(1.0 / 3.0), shrink))
-            u_rej = f32(u * v)
-            rel = f32(abs(res1 - res2) / max(res1, f32(1e-30)))
-        v_new = f32(2.0) if accept else f32(2.0 * v)
+            rho = ft(q / q1h)
+            shrink = ft(ft(1.0) - ft(ft(2.0) * rho - ft(1.0)) ** 3)
+            u_acc = ft(u * np.maximum(ft(1.0 / 3.0), shrink))
+            u_rej = ft(u * v)
+            rel = ft(abs(res1 - res2) / max(res1, ft(1e-30)))
+        v_new = ft(2.0) if accept else ft(2.0 * v)
         u_new = u_acc if accept else u_rej
-        stop = bool(rel < f32(cfg.rel_tol))
+        stop = bool(rel < ft(cfg.rel_tol))
         if cfg.abs_tol > 0:
-            stop = stop or bool(abs(res1 - res2) < f32(cfg.abs_tol))
+            stop = stop or bool(abs(res1 - res2) < ft(cfg.abs_tol))
         if cfg.ulp_tol > 0:
             stop = stop or bool(abs(res1 - res2)
-                                < f32(cfg.ulp_tol) * eps * abs(res1))
+                                < ft(cfg.ulp_tol) * eps * abs(res1))
         stop = stop and solve_ok
-        stop = stop or bool(u_new > f32(1e30)) or not bool(np.isfinite(u_new))
+        stop = stop or bool(u_new > ft(1e30)) or not bool(np.isfinite(u_new))
 
         t_res1[it], t_res2[it], t_u[it] = res1, res2, u
-        t_acc[it] = f32(1.0) if accept else f32(0.0)
+        t_acc[it] = ft(1.0) if accept else ft(0.0)
         if accept:
             R, p, res1 = Rt, pt, res2
         u, v = u_new, v_new

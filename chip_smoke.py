@@ -8,8 +8,9 @@ imports neither jax nor balm_tpu.  Phases, each printed on a flushed line
 as it starts and ends; any failure raises and the script exits non-zero:
 
   1. device  - the card's name and power limit (nvidia-smi)
-  2. build   - one nvcc call for csrc/packed_kernels.cu and
-               csrc/hess_kernels.cu (sm_90a)
+  2. build   - one nvcc process per source (csrc/packed_kernels.cu,
+               csrc/hess_kernels.cu, csrc/moments_kernels.cu; sm_90a),
+               all started together, then one link
   3. scene   - a synthetic scene from --seed: 256 scans along a smooth
                trajectory through a field of planar patches, ~30 k points
                each, poses perturbed with the virtual protocol's noise
@@ -39,14 +40,34 @@ as it starts and ends; any failure raises and the script exits non-zero:
                launch count set to 0 just before and read just after, held
                against the hybrid solve of phase 6; one evaluate_packed per
                impl against evaluate_packed_jw; ms per LM iteration
+  8. slice 3 - the f64 XLA evaluator path and kernel B7 `moments` at the
+               same size: (a) B7 against its plain version in f32 and f64
+               on the scene's recentered factors and on a ragged-W
+               problem, CUDA-event times beside its bound, its plain
+               version's and residual_moments' time; (b) the residual
+               through B7 (residual_only(centered=True, use_pallas=True),
+               every launch count set to 0 just before and read just
+               after) against the moment path and against f64;
+               (c) optimize_poses(dtype='float64') on the scene, its
+               solve's ms per iteration and peak memory, and phase 6's
+               f32 solve against its first SLICE_ITERS steps; (d) the f32
+               centered damping_iter(backend='xla') against the hybrid;
+               (e) one f64 evaluate on the card against the plain CPU path
+               on the first 32 scans; (f) pipelines.virtual.run on the
+               card against device='cpu', in f64 and f32 centered;
+               (g) a hybrid solve under the caller's
+               fp32_precision='tf32' against phase 6's
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
-kernels' Htilde), `launches` counts the launches in the run of the
-kernel's own path (phase 6 for csum and rows, phase 7 for the rest), and
+kernels' Htilde, B7's f32 Csum on the scene), `launches` counts the
+launches in the run of the kernel's own path (phase 6 for csum and rows,
+phase 7 for B4-B6, phase 8 (b) for B7), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
-"random_W256_G11520", their errors on the random moments of phase 4).  The last line is
+"random_W256_G11520", their errors on the random moments of phase 4;
+for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
+by dtype and residual_moments' time).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -98,6 +119,29 @@ SLICE2 = (("pallas2", dict(packed_impl="pallas2"), "hess_v2"),
           ("pallas", dict(packed_impl="pallas"), "hess_v1"),
           ("xla", dict(packed_impl="xla"), "rows"),
           ("chunk2048", dict(chunk_planes=2048), "rows"))
+# H100 SXM float64 peak outside the tensor cores (NVIDIA data sheet)
+PEAK_F64_FLOPS = 34e12
+# B7: floating-point operations per (scan, plane), counted from
+# csrc/moments_kernels.cu (A = R P 45, M 30, R v 15, the 10 sums 55)
+MOMENTS_FLOPS_PER_WG = 145
+# B7 against its plain version, relative to max|Csum|: the same products,
+# summed over scans in another order (8 scan lanes) and contracted into
+# FMAs by nvcc
+TOL_MOMENTS = {"float32": 1e-5, "float64": 1e-12}
+# the residual through B7 against the moment path in f32, and the f32
+# value against the f64 one (tests/test_pallas_evaluate.py:40-58)
+TOL_RES_B7 = 1e-4
+TOL_RES_F64 = 1e-3
+# one f64 evaluate, card against the plain CPU path (tests/test_factors.py)
+TOL_EVAL64 = {"res": 1e-10, "J": 1e-8, "H": 1e-8}
+EVAL64_SCANS = 32
+# pipelines.virtual on the card against device='cpu': RSME in f64 and f32,
+# and the reference's accuracy bars (rot deg, trans m)
+TOL_VIRTUAL = {"float64": 1e-9, "float32": 1e-4}
+VIRTUAL_BARS = (0.1, 0.01)
+# the f32 packed path of optimize_poses (damping_iter's defaults are the
+# JAX package's: backend='xla', centered=False)
+PACKED = dict(centered=True, backend="packed")
 SCANS = 256
 POINTS_PER_SCAN = 30000
 VOXEL = 2.0
@@ -308,6 +352,29 @@ def compare(what, got, ref, tol):
     return {"abs": err, "rel": rel}
 
 
+def same_steps(name, out, ref, ref_name, n=SLICE_ITERS):
+    """Raise unless LMResult `out` takes `ref`'s accept pattern over the
+    first n iterations with res1/res2 within TOL_TRACE relative, and its
+    residual is finite and falls."""
+    if not np.array_equal(out.trace_accept[:n], ref.trace_accept[:n]):
+        raise AssertionError(f"{name}: accept pattern differs from "
+                             f"the {ref_name} solve")
+    for key in ("trace_res1", "trace_res2"):
+        a = getattr(out, key)[:n].astype(np.float64)
+        b = getattr(ref, key)[:n].astype(np.float64)
+        rel = float(np.max(np.abs(a - b) / np.abs(b)))
+        log(f"    {key} vs {ref_name}: max rel {rel:.3e} "
+            f"(tol {TOL_TRACE:.0e})")
+        if not (np.isfinite(rel) and rel <= TOL_TRACE):
+            raise AssertionError(f"{name}: {key} differs from the "
+                                 f"{ref_name} solve: {rel}")
+    used = out.trace_res1[:out.iters]
+    if not (np.all(np.isfinite(used)) and np.isfinite(out.residual)
+            and out.residual < used[0]):
+        raise AssertionError(f"{name}: the solve is not finite and "
+                             f"falling")
+
+
 def bounds(Wp, Gp):
     """Least time (ms) for each kernel's work at this shape: the larger
     of bytes (inputs read once, outputs written once) over HBM bandwidth
@@ -351,6 +418,237 @@ def bounds(Wp, Gp):
 
 
 # --------------------------------------------------------------------------
+# phase 8: slice 3
+# --------------------------------------------------------------------------
+
+def moments_bound(W, G, itemsize):
+    """B7's least time (ms): bytes (R9, CH and OFS read once, Csum written
+    once) over HBM bandwidth against its flops over the peak of its
+    dtype."""
+    nbytes = itemsize * (13 * W * G + 10 * G + 9 * W)
+    flops = MOMENTS_FLOPS_PER_WG * W * G
+    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_F64_FLOPS
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / peak * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def solve_timed(fn):
+    """(LMResult, ms per iteration by CUDA events, peak device bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return (out, start.elapsed_time(end) / max(out.iters, 1),
+            torch.cuda.max_memory_allocated())
+
+
+def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
+           counters):
+    """Phase 8: the f64 XLA evaluator path and kernel B7 on the card.
+    `f` is the scene's f32 recentered factors on the card, `ref` phase
+    6's hybrid solve; returns B7's record of the kernels line."""
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import lie, moments
+    from balm_tpu_torch.pipelines import virtual
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.voxel import grid
+
+    counters = dict(counters, moments=moments.accumulate_moments)
+    SolverConfig = balm_tpu_torch.SolverConfig
+    f64 = torch.float64
+    R0t = torch.tensor(R0, dtype=torch.float32, device=dev)
+    p0t = torch.tensor(p0, dtype=torch.float32, device=dev)
+    R0d = torch.tensor(R0, dtype=f64, device=dev)
+    p0d = torch.tensor(p0, dtype=f64, device=dev)
+    T32 = lie.pose_matrix(R0t, p0t)
+    T64 = lie.pose_matrix(R0d, p0d)
+    f_64 = Fmod.factors_from_numpy(Fmod.recenter_bodies(vres.factors),
+                                   device=dev, dtype=f64)
+    G, W = f.C.shape[:2]
+
+    log("  (a) B7 moments against its plain version")
+    recs = {}
+    packed = {"float32": moments.pack_inputs(T32, f),
+              "float64": moments.pack_inputs(T64, f_64)}
+    for dt, x in packed.items():
+        got = moments.accumulate_moments(*x)
+        exp = moments.accumulate_moments_plain(*x)
+        torch.cuda.synchronize()
+        recs[dt] = compare(f"[scene {dt}] moments W={W} G={G}", got, exp,
+                           TOL_MOMENTS[dt])
+    pose_r, pk_r = ragged_problem(args.seed + 2, W=13, G=384, device=dev)
+    rag = (pose_r[:, :9], pk_r.mom, pose_r[:, 9:12, None] - pk_r.cen[None])
+    for dt in ("float32", "float64"):
+        x = [t.to(getattr(torch, dt)).contiguous() for t in rag]
+        got = moments.accumulate_moments(*x)
+        exp = moments.accumulate_moments_plain(*x)
+        torch.cuda.synchronize()
+        recs[f"ragged_W13_G384_{dt}"] = compare(
+            f"[ragged {dt}] moments W=13 G=384", got, exp, TOL_MOMENTS[dt])
+    del pose_r, pk_r, rag
+    timing = {}
+    for dt, x in packed.items():
+        bb = moments_bound(W, G, x[1].element_size())
+        ms = time_ms(lambda: moments.accumulate_moments(*x))
+        plain_ms = time_ms(lambda: moments.accumulate_moments_plain(*x),
+                           iters=5)
+        timing[dt] = dict(ms=ms, plain_ms=plain_ms, **bb)
+        log(f"  moments {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
+            f"{bb['bytes']} B, {bb['flops']} flop) at W={W} G={G} on {card}")
+    rm_ms = time_ms(lambda: moments.residual_moments(T32, f))
+    log(f"  residual_moments f32 (pack_inputs + kernel + unpack): "
+        f"{rm_ms:.4f} ms on {card}")
+    del packed
+
+    log("  (b) the residual through B7")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    r_b7 = float(Fmod.residual_only(T32, f, centered=True, use_pallas=True))
+    r_end = float(Fmod.residual_only(lie.pose_matrix(ref.R, ref.p), f,
+                                     centered=True, use_pallas=True))
+    r64 = float(Fmod.residual_only(T64, f_64, centered=True,
+                                   use_pallas=True))
+    torch.cuda.synchronize()
+    b7_launches = {k: c.launches for k, c in counters.items()}
+    log(f"  launches in the B7 path: {b7_launches}")
+    r_mom = float(Fmod.residual_only(T32, f, centered=True))
+    r_end_mom = float(Fmod.residual_only(lie.pose_matrix(ref.R, ref.p), f,
+                                         centered=True))
+    for what, a, b, tol in (
+            ("f32 B7 vs moment path at the initial poses", r_b7, r_mom,
+             TOL_RES_B7),
+            ("f32 B7 vs moment path at phase 6's result", r_end, r_end_mom,
+             TOL_RES_B7),
+            ("f32 B7 vs f64 B7", r_b7, r64, TOL_RES_F64)):
+        rel = abs(a - b) / abs(b)
+        log(f"  residual {what}: {a:.6f} vs {b:.6f}, rel {rel:.3e} "
+            f"(tol {tol:.0e})")
+        if not (np.isfinite(rel) and rel <= tol):
+            raise AssertionError(f"residual {what} differs: {rel}")
+    if b7_launches["moments"] != 3:
+        raise AssertionError(f"B7 path launches {b7_launches}")
+
+    log("  (c) optimize_poses(dtype='float64') on the card")
+    t0 = time.perf_counter()
+    R64, p64, info64 = balm_tpu_torch.optimize_poses(
+        scans, R0, p0, voxel=vcfg, dtype="float64", verbose=True)
+    torch.cuda.synchronize()
+    log(f"  info: {json.dumps(info64)}; {time.perf_counter() - t0:.3f} s "
+        f"wall (voxelize + solve)")
+    rs0, rs64 = rsme(R0, p0, R_gt, p_gt), rsme(R64, p64, R_gt, p_gt)
+    log(f"  RSME after (f64): rot {rs64[0]:.6e} rad, trans {rs64[1]:.6e} m "
+        f"(before: {rs0[0]:.6e} rad, {rs0[1]:.6e} m)")
+    if not (info64["status"] == "ok" and info64["backend"] == "xla"
+            and np.isfinite(info64["residual"])
+            and info64["residual"] < info64["residual_initial"]
+            and rs64[1] < rs0[1]):
+        raise AssertionError(f"f64 solve failed: {info64}, rsme {rs64}")
+    f_raw = Fmod.factors_from_numpy(vres.factors, device=dev, dtype=f64)
+    res64, ms64, peak64 = solve_timed(
+        lambda: lm.damping_iter(R0d, p0d, f_raw, SolverConfig()))
+    log(f"  f64 solve: {res64.iters} iterations, {ms64:.3f} ms per "
+        f"iteration (CUDA events), peak {peak64 / 2**30:.3f} GiB "
+        f"allocated, on {card}")
+    log("  phase 6's f32 packed solve against the f64 solve:")
+    same_steps("f32 packed vs f64", ref, res64, "f64")
+
+    log("  (d) the f32 centered damping_iter(backend='xla')")
+    res_x, ms_x, peak_x = solve_timed(
+        lambda: lm.damping_iter(R0t, p0t, f, SolverConfig(), centered=True,
+                                backend="xla"))
+    log(f"  f32 xla solve: {res_x.iters} iterations, residual "
+        f"{res_x.trace_res1[0]:.6f} -> {res_x.residual:.6f}, {ms_x:.3f} ms "
+        f"per iteration (CUDA events), peak {peak_x / 2**30:.3f} GiB "
+        f"allocated, on {card}")
+    same_steps("f32 xla", res_x, ref, "hybrid")
+
+    log(f"  (e) one f64 evaluate, card vs CPU, first {EVAL64_SCANS} scans")
+    n = EVAL64_SCANS
+    v_n = grid.voxelize(scans[:n], R0[:n], p0[:n], vcfg)
+    T_n = lie.pose_matrix(R0d[:n], p0d[:n])
+    ev_g = Fmod.evaluate(T_n, Fmod.factors_from_numpy(
+        v_n.factors, device=dev, dtype=f64))
+    ev_c = Fmod.evaluate(T_n.cpu(), Fmod.factors_from_numpy(
+        v_n.factors, device="cpu", dtype=f64))
+    log(f"  {v_n.num_planes} planes")
+    for name, a, b in zip(("res", "J", "H"), ev_g, ev_c):
+        compare(f"f64 evaluate {name}, card vs CPU", a.reshape(-1),
+                b.reshape(-1), TOL_EVAL64[name])
+    del ev_g, ev_c
+
+    log("  (f) pipelines.virtual.run on the card against device='cpu'")
+    for dt, centered in (("float64", False), ("float32", True)):
+        cfg = virtual.VirtualConfig(dtype=dt)
+        og = virtual.run(cfg, centered=centered)
+        oc = virtual.run(cfg, centered=centered, device="cpu")
+        for where, o in (("card", og), ("cpu", oc)):
+            log(f"  virtual {dt} centered={centered} {where}: iters "
+                f"{o['iters']}, rot {o['rsme_rot_deg']:.9f} deg, trans "
+                f"{o['rsme_trans_m']:.9f} m (from "
+                f"{o['rsme_rot_deg_initial']:.6f} deg, "
+                f"{o['rsme_trans_m_initial']:.6f} m)")
+            if not (o["rsme_rot_deg"] < VIRTUAL_BARS[0]
+                    and o["rsme_trans_m"] < VIRTUAL_BARS[1]):
+                raise AssertionError(f"virtual {dt} {where} misses the "
+                                     f"bars {VIRTUAL_BARS}")
+        d = max(abs(og[k] - oc[k]) for k in ("rsme_rot_deg",
+                                              "rsme_trans_m"))
+        log(f"    RSME card vs cpu: max diff {d:.3e} "
+            f"(tol {TOL_VIRTUAL[dt]:.0e})")
+        if not d <= TOL_VIRTUAL[dt]:
+            raise AssertionError(f"virtual {dt}: card and CPU differ by {d}")
+        if dt == "float64" and og["iters"] != oc["iters"]:
+            raise AssertionError("virtual f64: iterations differ")
+
+    log("  (g) a hybrid solve under the caller's fp32_precision='tf32'")
+    mm = torch.backends.cuda.matmul
+    prev = mm.fp32_precision
+    try:
+        mm.fp32_precision = "tf32"
+        tr = lm.damping_iter(R0t, p0t, f, SolverConfig(), **PACKED)
+        kept = mm.fp32_precision
+    finally:
+        mm.fp32_precision = prev
+    if kept != "tf32":
+        raise AssertionError(f"the solve changed the caller's setting: "
+                             f"{kept}")
+    same_steps("hybrid under tf32", tr, ref, "hybrid")
+
+    t32 = timing["float32"]
+    return {
+        "name": "moments", "route": "cuda",
+        "source": "balm_tpu_torch/csrc/moments_kernels.cu",
+        "replaces": "balm_tpu/ops/pallas_moments.py:41",
+        "launches": b7_launches["moments"],
+        "max_abs_err": recs["float32"]["abs"], "err_by_output": recs,
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"],
+        "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
+        "library_ms": None,
+        "by_dtype": {dt: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by")}
+                     for dt, t in timing.items()},
+        "residual_moments_ms": rm_ms,
+        "solves": {"f64_xla": {"iters": res64.iters, "ms_per_iter": ms64,
+                               "peak_bytes": peak64},
+                   "f32_xla": {"iters": res_x.iters, "ms_per_iter": ms_x,
+                               "peak_bytes": peak_x}}}
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -360,7 +658,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/7 device")
+    log("phase 1/8 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -387,7 +685,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/7 build")
+    log("phase 2/8 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -395,7 +693,7 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
     _cuda.lib()
 
-    log("phase 3/7 scene")
+    log("phase 3/8 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -412,7 +710,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/7 kernels vs plain")
+    log("phase 4/8 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -473,7 +771,7 @@ def main(argv=None) -> int:
             f"{bb['bytes']} B, {bb['flops']} flop) at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/7 small slice: card vs plain CPU path")
+    log("phase 5/8 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -491,7 +789,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/7 slice: optimize_poses on the card")
+    log("phase 6/8 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -526,8 +824,8 @@ def main(argv=None) -> int:
     compare("evaluate H, card vs CPU", ev_g[2], ev_c[2], TOL_EVAL["H"])
     del ev_g, ev_c
     short = balm_tpu_torch.SolverConfig(max_iters=SLICE_ITERS)
-    tr_g = lm.damping_iter(R0t, p0t, f, short)
-    tr_c = lm.damping_iter(R0c, p0c, f_cpu, short)
+    tr_g = lm.damping_iter(R0t, p0t, f, short, **PACKED)
+    tr_c = lm.damping_iter(R0c, p0c, f_cpu, short, **PACKED)
     for name, tr in (("card", tr_g), ("cpu", tr_c)):
         log(f"  first {SLICE_ITERS} iterations, {name}:")
         for line in lm.format_trace(tr).splitlines():
@@ -548,7 +846,8 @@ def main(argv=None) -> int:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    res = lm.damping_iter(R0t, p0t, f, balm_tpu_torch.SolverConfig())
+    res = lm.damping_iter(R0t, p0t, f, balm_tpu_torch.SolverConfig(),
+                          **PACKED)
     end.record()
     torch.cuda.synchronize()
     ms_iter = start.elapsed_time(end) / max(res.iters, 1)
@@ -564,7 +863,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/7 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/8 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -586,7 +885,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         start.record()
         out = lm.damping_iter(R0t, p0t, f, balm_tpu_torch.SolverConfig(),
-                              **kw)
+                              **PACKED, **kw)
         end.record()
         torch.cuda.synchronize()
         ms_it = start.elapsed_time(end) / max(out.iters, 1)
@@ -596,28 +895,15 @@ def main(argv=None) -> int:
             f"{out.trace_res1[0]:.6f} -> {out.residual:.6f}, "
             f"{ms_it:.3f} ms per iteration (CUDA events) on {card}; "
             f"launches {got}")
-        n = SLICE_ITERS
-        if not np.array_equal(out.trace_accept[:n], ref.trace_accept[:n]):
-            raise AssertionError(f"{name}: accept pattern differs from "
-                                 f"the hybrid solve")
-        for key in ("trace_res1", "trace_res2"):
-            a = getattr(out, key)[:n].astype(np.float64)
-            b = getattr(ref, key)[:n].astype(np.float64)
-            rel = float(np.max(np.abs(a - b) / np.abs(b)))
-            log(f"    {key} vs hybrid: max rel {rel:.3e} "
-                f"(tol {TOL_TRACE:.0e})")
-            if not (np.isfinite(rel) and rel <= TOL_TRACE):
-                raise AssertionError(f"{name}: {key} differs from the "
-                                     f"hybrid solve: {rel}")
-        used = out.trace_res1[:out.iters]
-        if not (np.all(np.isfinite(used)) and np.isfinite(out.residual)
-                and out.residual < used[0]):
-            raise AssertionError(f"{name}: the solve is not finite and "
-                                 f"falling")
+        same_steps(name, out, ref, "hybrid")
         fused = kernel.startswith("hess")
         if got[kernel] <= 0 or got["csum"] <= 0 or (
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
+
+    log("phase 8/8 slice 3: the f64 XLA evaluator path and B7 on the card")
+    rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
+                    f, ref, counters)
 
     kernels = []
     src1 = "balm_tpu_torch/csrc/packed_kernels.cu"
@@ -641,6 +927,7 @@ def main(argv=None) -> int:
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms})
+    kernels.append(rec_b7)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -198,7 +198,8 @@ def test_damping_iter_packed_impl_matches_jax(kw):
         centered=True, backend="packed", **kw)
     tres = tlm.damping_iter(
         _t(R0), _t(p0), tF.factors_from_numpy([np.asarray(x) for x in f32]),
-        SolverConfig(max_iters=4, rel_tol=0.0, min_planes_per_pose=0), **kw)
+        SolverConfig(max_iters=4, rel_tol=0.0, min_planes_per_pose=0),
+        centered=True, backend="packed", **kw)
     assert tres.iters == int(jres.iters) > 0
     n = tres.iters
     assert np.array_equal(tres.trace_accept[:n],

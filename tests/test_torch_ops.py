@@ -68,7 +68,9 @@ def test_lie_matches_jax():
 
 
 def test_port_imports_neither_jax_nor_balm_tpu():
-    code = ("import sys, balm_tpu_torch, balm_tpu_torch.api, chip_smoke; "
+    code = ("import sys, balm_tpu_torch, balm_tpu_torch.api, chip_smoke, "
+            "balm_tpu_torch.ops.moments, balm_tpu_torch.ops.smallmat, "
+            "balm_tpu_torch.pipelines.virtual; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'balm_tpu' or "
             "m.startswith('balm_tpu.')]; "

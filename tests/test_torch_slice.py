@@ -139,7 +139,8 @@ def test_damping_iter_solvers_match_jax(linear_solver):
     tres = tlm.damping_iter(
         torch.tensor(R0, dtype=torch.float32),
         torch.tensor(p0, dtype=torch.float32),
-        tF.factors_from_numpy(fr), cfg, linear_solver=linear_solver)
+        tF.factors_from_numpy(fr), cfg, centered=True, backend="packed",
+        linear_solver=linear_solver)
     assert tres.iters == int(jres.iters) > 0
     n = tres.iters
     assert np.allclose(tres.trace_res1[:n], np.asarray(jres.trace_res1)[:n],
@@ -162,8 +163,7 @@ def test_optimize_poses_runs_on_cuda_or_raises():
 
 def test_unported_paths_raise():
     R_gt, p_gt, scans = make_long_scene(W=4, n_planes=8, seed=3)
-    for kw in (dict(backend="large"), dict(backend="xla"),
-               dict(loop_closure=True), dict(dtype="float64")):
+    for kw in (dict(backend="large"), dict(loop_closure=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             balm_tpu_torch.optimize_poses(scans, R_gt, p_gt, device="cpu",
                                           **kw)
@@ -174,9 +174,9 @@ def test_unported_paths_raise():
         tgrid.voxelize(scans, R_gt, p_gt, VoxelConfig()).factors))
     R = torch.tensor(R_gt, dtype=torch.float32)
     p = torch.tensor(p_gt, dtype=torch.float32)
-    for kw in (dict(backend="xla"), dict(update="right"),
-               dict(edges=object()), dict(linear_solver="pcg"),
-               dict(hess_precision="bf16")):
+    for kw in (dict(backend="large"), dict(edges=object()),
+               dict(linear_solver="pcg"),
+               dict(hess_precision="bf16", centered=True, backend="packed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.damping_iter(R, p, f, **kw)
     with pytest.raises(ValueError, match="unknown packed_impl"):
