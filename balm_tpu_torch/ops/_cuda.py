@@ -147,12 +147,12 @@ def lib():
         h.balm_rows_packed.restype = cint
         h.balm_rows_block_planes.argtypes = []
         h.balm_rows_block_planes.restype = cint
-        h.balm_hess_v1_splits.argtypes = [i64, i64, cint]
-        h.balm_hess_v1_splits.restype = cint
-        h.balm_hess_v1.argtypes = [vp] * 9 + [i64, i64, i64, cint, vp]
-        h.balm_hess_v1.restype = cint
-        h.balm_hess_v2.argtypes = [vp] * 7 + [i64, i64, cint, vp]
-        h.balm_hess_v2.restype = cint
+        h.balm_hess_splits.argtypes = [i64, i64, cint]
+        h.balm_hess_splits.restype = cint
+        h.balm_hess_tile_floats.argtypes = [i64]
+        h.balm_hess_tile_floats.restype = i64
+        h.balm_hess_tri.argtypes = [vp] * 9 + [i64, i64, i64, cint, cint, vp]
+        h.balm_hess_tri.restype = cint
         h.balm_hess_v3.argtypes = [vp] * 7 + [i64, i64, i64, cint, vp]
         h.balm_hess_v3.restype = cint
         for name in ("balm_moments_f32", "balm_moments_f64"):

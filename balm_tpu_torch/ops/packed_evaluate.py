@@ -22,8 +22,12 @@ The Hessian product H = sum_k M_k M_k^T of the hybrid and xla paths is a
 plain matrix product outside any kernel (torch.matmul, as the JAX package
 leaves it to XLA's dot), run in full fp32: TF32 is switched off around
 it (precision.fp32_matmul; the LM loop holds the same context), because TF32's 10-bit mantissa on moment math is the same silent
-corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4-B6
-compute the same product inside their own bodies with fp32 FMA.
+corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4 and
+B6 compute the product inside their own bodies on the tensor cores as the
+TPU kernels do, from bf16 pieces of each value (split_bf16): `'bf16x3'`
+(three products of hi/lo pieces, B4's default and JAX's) or `'f32'` (six
+products of hi/mid/lo pieces, exact to fp32; B6 always, and B4 when
+asked).  B5 computes the exact fp32 product with FMA.
 """
 
 from __future__ import annotations
@@ -344,11 +348,33 @@ def _hess_precision(hess_precision):
 
 
 def _split(split):
-    """The fused kernels' `split`: 'f32' and 'bf16x3' both run the exact
-    fp32 product.  bf16x3 is the TPU's way to approach f32 on a bf16
-    MXU; fp32 FMA on the card is the product it approximates."""
+    """The fused kernels' `split`: 'f32' (the exact fp32 product) or
+    'bf16x3' (hi/lo bf16 pieces, three products: the JAX kernel's)."""
     if split not in ("f32", "bf16x3"):
         raise ValueError(f"unknown split {split!r}")
+
+
+def split_of(hess_precision):
+    """The JAX package's split of the fused kernels for a hess_precision
+    (pallas_evaluate.py:999-1018 after lm.py:195): None and 'highest'
+    give 'f32', 'high' gives 'bf16x3'."""
+    return "f32" if hess_precision in (None, "highest") else "bf16x3"
+
+
+def split_bf16(x, pieces):
+    """The bf16 pieces of an fp32 tensor, each rounded to nearest even as
+    JAX's astype: pieces=2 gives (hi, lo) with lo = bf16(x - hi), the
+    TPU kernel's bf16x3 split; pieces=3 gives (hi, mid, lo) with mid =
+    bf16(x - hi) and lo = bf16(x - hi - mid), whose sum is x exactly."""
+    if pieces not in (2, 3):
+        raise ValueError(f"pieces must be 2 or 3, got {pieces}")
+    out, r = [], x
+    for i in range(pieces):
+        p = r.to(torch.bfloat16)
+        out.append(p)
+        if i + 1 < pieces:
+            r = r - p.to(torch.float32)
+    return tuple(out)
 
 
 def _jw_product(rows):
@@ -396,38 +422,67 @@ def _hess_checked(pose, mom, cen, aux):
     return Wp, Gp
 
 
-def hess_packed_plain(pose, mom, cen, aux):
+def _jw_product_bf16x3(rows):
+    """_jw_product as the JAX kernel's bf16x3 dot: hi hi^T + hi lo^T +
+    lo hi^T, each an fp32 torch.mm on the upcast pieces."""
+    Wp, Gp = rows.shape[2], rows.shape[3]
+    hi, lo = (p.to(torch.float32)
+              for p in split_bf16(rows.view(3, 6 * Wp, Gp), 2))
+    terms = [(a[k], b[k]) for k in range(3)
+             for a, b in ((hi, hi), (hi, lo), (lo, hi))]
+    with fp32_matmul():
+        H = torch.mm(terms[0][0], terms[0][1].T)
+        for a, b in terms[1:]:
+            H.addmm_(a, b.T)
+    return H
+
+
+def hess_packed_plain(pose, mom, cen, aux, *, split="f32"):
     """Plain version of the B4 and B6 kernels (they compute one function):
     -> (Htilde (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)) from the
-    plain rank rows and an fp32 product."""
+    plain rank rows and an fp32 product: exact (split 'f32', which the
+    kernels' six bf16 products reach) or the bf16x3 one."""
+    _split(split)
     rows, J, D = rows_packed_plain(pose, mom, cen, aux)
-    return _jw_product(rows), J, D
+    prod = _jw_product if split == "f32" else _jw_product_bf16x3
+    return prod(rows), J, D
+
+
+def _hess_tri(name, pose, mom, cen, aux, split):
+    """Launch B6 (name 'hess_v1') or B4 ('hess_v2'), one kernel at the
+    given split, on CUDA tensors: the split partials of the lower-triangle
+    tiles, then their sum in split order into both triangles of Htilde, J
+    and D."""
+    Wp, Gp = _hess_checked(pose, mom, cen, aux)
+    lib = _cuda.lib()
+    dev = mom.device
+    nsplit = lib.balm_hess_splits(Wp, Gp, dev.index)
+    if nsplit < 1:
+        raise RuntimeError(f"{name}: could not read the SM count")
+    n6 = 6 * Wp
+    Hpart = _empty(dev, nsplit, lib.balm_hess_tile_floats(Wp))
+    JDpart = _empty(dev, nsplit, Wp, 42)
+    H, J, D = _empty(dev, n6, n6), _empty(dev, Wp, 6), _empty(dev, Wp, 36)
+    rc = lib.balm_hess_tri(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        Hpart.data_ptr(), JDpart.data_ptr(), H.data_ptr(), J.data_ptr(),
+        D.data_ptr(), Wp, Gp, nsplit, int(split == "bf16x3"), dev.index,
+        _cuda.stream_of(mom))
+    _cuda.check_launch(rc, name)
+    return H, J, D
 
 
 def hess_packed(pose, mom, cen, aux):
     """B6 wrapper, the v1 fused kernel (`_hess_kernel`): -> (Htilde
     (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)).  CUDA tensors: the
-    `hess_v1` kernel (partial Htilde per plane split, summed in split
-    order) with the exact fp32 product, as the TPU kernel's HIGHEST dot;
-    CPU tensors: hess_packed_plain."""
+    `hess_v1` kernel, the lower-triangle tiles per plane split on the
+    tensor cores, with the exact split (six bf16 products), as the TPU
+    kernel's HIGHEST dot; CPU tensors: hess_packed_plain."""
     if _on_cpu(pose, mom, cen, aux):
         return hess_packed_plain(pose, mom, cen, aux)
-    Wp, Gp = _hess_checked(pose, mom, cen, aux)
-    lib = _cuda.lib()
-    dev = mom.device
-    nsplit = lib.balm_hess_v1_splits(Wp, Gp, dev.index)
-    if nsplit < 1:
-        raise RuntimeError("hess_v1: could not read the SM count")
-    n6 = 6 * Wp
-    Hpart, JDpart = _empty(dev, nsplit, n6, n6), _empty(dev, nsplit, Wp, 42)
-    H, J, D = _empty(dev, n6, n6), _empty(dev, Wp, 6), _empty(dev, Wp, 36)
-    rc = lib.balm_hess_v1(
-        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
-        Hpart.data_ptr(), JDpart.data_ptr(), H.data_ptr(), J.data_ptr(),
-        D.data_ptr(), Wp, Gp, nsplit, dev.index, _cuda.stream_of(mom))
-    _cuda.check_launch(rc, "hess_v1")
+    out = _hess_tri("hess_v1", pose, mom, cen, aux, "f32")
     hess_packed.launches += 1
-    return H, J, D
+    return out
 
 
 hess_packed.launches = 0
@@ -436,23 +491,15 @@ hess_packed.launches = 0
 def hess_packed_v2(pose, mom, cen, aux, *, split="bf16x3"):
     """B4 wrapper, the v2 fused kernel (`_hess_kernel_v2`): -> (Htilde
     (6Wp, 6Wp) (j, w)-major, J (Wp, 6), D (Wp, 36)).  CUDA tensors: the
-    `hess_v2` kernel, one block per output tile walking the whole plane
-    axis; CPU tensors: hess_packed_plain.  `split` 'f32' and 'bf16x3'
-    both run the exact fp32 product (see _split)."""
+    `hess_v2` kernel, the body of B6 with the product of `split`: 'bf16x3'
+    (hi/lo pieces, three products, the JAX kernel's) or 'f32' (exact);
+    CPU tensors: hess_packed_plain with the same split."""
     _split(split)
     if _on_cpu(pose, mom, cen, aux):
-        return hess_packed_plain(pose, mom, cen, aux)
-    Wp, Gp = _hess_checked(pose, mom, cen, aux)
-    dev = mom.device
-    n6 = 6 * Wp
-    H, J, D = _empty(dev, n6, n6), _empty(dev, Wp, 6), _empty(dev, Wp, 36)
-    rc = _cuda.lib().balm_hess_v2(
-        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
-        H.data_ptr(), J.data_ptr(), D.data_ptr(), Wp, Gp, dev.index,
-        _cuda.stream_of(mom))
-    _cuda.check_launch(rc, "hess_v2")
+        return hess_packed_plain(pose, mom, cen, aux, split=split)
+    out = _hess_tri("hess_v2", pose, mom, cen, aux, split)
     hess_packed_v2.launches += 1
-    return H, J, D
+    return out
 
 
 hess_packed_v2.launches = 0
@@ -516,9 +563,11 @@ def hess_packed_v3(pose, mom, cen, aux, *, split="bf16x3", bw=None):
     ragged when Bw does not divide Wp (zero rows, cropped here).  The JAX
     wrapper's `bg` is a TPU plane tile and has no counterpart: the CUDA
     kernel picks its own plane chunk.  `split` 'f32' and 'bf16x3' both run
-    the exact fp32 product (see _split).  The mirror of the lower-triangle
-    pair blocks into the full matrix is torch glue, the same for the
-    kernel and its plain version (pallas_evaluate.py:770-782).
+    the exact fp32 product, as its plain version does (the JAX kernel's
+    bf16x3 is not ported yet: ROADMAP queue C, C4).  The mirror of the
+    lower-triangle pair blocks into the full matrix is torch glue, the
+    same for the kernel and its plain version (pallas_evaluate.py:
+    770-782).
     """
     _split(split)
     Wp = mom.shape[0]
@@ -595,8 +644,10 @@ def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
       'pallas3'  B5 pose-block-pair kernel (hess_packed_v3)
 
     The plane moments are the B1 `csum` kernel for every impl.
-    hess_precision: None, 'high' or 'highest' (all the exact fp32
-    product); 'bf16' raises (ROADMAP queue B3)."""
+    hess_precision: None, 'high' or 'highest'; 'bf16' raises (ROADMAP
+    queue B3).  The xla and hybrid products are exact fp32 at each; the
+    fused kernels take the JAX package's split (split_of): 'f32' at None
+    and 'highest', 'bf16x3' at 'high'."""
     _hess_precision(hess_precision)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
@@ -604,15 +655,16 @@ def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
     Wp = pk.wp
     if impl == "pallas2" and pallas2_to_pallas3(Wp):
         impl = "pallas3"
+    split = split_of(hess_precision)
     jw_major = {"hybrid": hess_packed_hybrid, "pallas": hess_packed,
-                "pallas2": hess_packed_v2}
+                "pallas2": lambda *a: hess_packed_v2(*a, split=split)}
     pose = pad_poses(R, p, Wp).to(torch.float32)
     csum = csum_packed(pose, pk.mom, pk.cen, pk.cfix)
     res, aux = _aux_from_csum(csum, pk, gap_eps)
     if impl == "xla":
         Ht, Jt, Dt = hess_packed_xla(pose, pk.mom, pk.cen, aux)
     elif impl == "pallas3":
-        Ht, Jt, Dt = hess_packed_v3(pose, pk.mom, pk.cen, aux, split="f32")
+        Ht, Jt, Dt = hess_packed_v3(pose, pk.mom, pk.cen, aux, split=split)
     else:
         Ht, Jt, Dt = jw_major[impl](pose, pk.mom, pk.cen, aux)
         # (j, w)-major -> (w, j)-major

@@ -10,7 +10,9 @@ as it starts and ends; any failure raises and the script exits non-zero:
   1. device  - the card's name and power limit (nvidia-smi)
   2. build   - one nvcc process per source (csrc/packed_kernels.cu,
                csrc/hess_kernels.cu, csrc/moments_kernels.cu; sm_90a),
-               all started together, then one link
+               all started together, then one link; ptxas's registers and
+               spills per kernel, and the tensor-core instructions of the
+               fused-Hessian kernels in the SASS (B4/B6 must hold HGMMA)
   3. scene   - a synthetic scene from --seed: 256 scans along a smooth
                trajectory through a field of planar patches, ~30 k points
                each, poses perturbed with the virtual protocol's noise
@@ -21,7 +23,10 @@ as it starts and ends; any failure raises and the script exits non-zero:
                (W=24, bw 8 and 16, the last block ragged at 16), and the
                fused-Hessian kernels on random moments at the slice's
                shape (W=256, G=11520), where fp32 accumulation drift
-               would show; CUDA-event
+               would show; B4 `hess_v2` at both splits ('bf16x3' against
+               the plain bf16x3 product, 'f32' against the exact one) and
+               B6 `hess_v1` (exact), each also launched twice for the same
+               bits; CUDA-event
                times beside each kernel's bound, its plain version's time
                and, for the fused-Hessian kernels, the library time of the
                same product (three fp32 torch.mm on B2's rows)
@@ -35,8 +40,10 @@ as it starts and ends; any failure raises and the script exits non-zero:
                against the plain CPU path; ms per LM iteration (CUDA
                events)
   7. slice 2 - the fused-Hessian evaluate at the same size: damping_iter
-               with packed_impl 'pallas2' (B4), 'pallas3' (B5), 'pallas'
-               (B6) and 'xla', and with chunk_planes=2048, each with every
+               with packed_impl 'pallas2' (B4, bf16x3 at the default
+               hess_precision='high'), 'pallas2' with hess_precision=
+               'highest' (B4, exact), 'pallas3' (B5), 'pallas' (B6) and
+               'xla', and with chunk_planes=2048, each with every
                launch count set to 0 just before and read just after, held
                against the hybrid solve of phase 6; one evaluate_packed per
                impl against evaluate_packed_jw; ms per LM iteration
@@ -65,9 +72,13 @@ launches in the run of the kernel's own path (phase 6 for csum and rows,
 phase 7 for B4-B6, phase 8 (b) for B7), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
-"random_W256_G11520", their errors on the random moments of phase 4;
-for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
-by dtype and residual_moments' time).  The last line is
+"random_W256_G11520", their errors on the random moments of phase 4,
+and for B4 under "split_f32" its errors at split='f32'; for B7 per dtype
+and problem, with `ms`, `plain_ms` and `bound_ms` also by dtype and
+residual_moments' time).  B4's `ms`, `plain_ms`, `bound_ms` are those
+of its default split (bf16x3); `by_split` holds both.  The fused-Hessian
+kernels' `simt_bound_ms` is their bound with the whole product on the
+fp32 SIMT pipe, kept to compare with earlier rows.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -75,16 +86,22 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
-# the tensor cores
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores, and the dense bf16 tensor-core rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# tensor-core passes of the fused-Hessian products: bf16x3 (hh, hl, lh)
+# and the exact split (hh, hm, mh, hl, lh, mm; three TF32 passes at half
+# the rate take the same time)
+SPLIT_PASSES = {"bf16x3": 3, "f32": 6}
 # floating-point operations per (scan, plane), counted from the sources in
 # csrc/packed_kernels.cu: csum = two shifted_t + rprt + the two-pass
 # updates; rows = rows_point + the J/D reduction
@@ -99,7 +116,9 @@ TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
 # the fused-Hessian kernels against their plain versions (rows + fp32
 # torch.mm): Htilde at the bar of tests/test_pallas_evaluate.py:158-159 —
 # each output entry is a sum over 3 Gp terms, taken by the kernel in
-# plane-chunk order with FMA and by cuBLAS in its own blocking
+# plane-chunk order (on the tensor cores for B4 and B6, with FMA for B5)
+# and by cuBLAS in its own blocking; B4's bf16x3 split is held against
+# the plain bf16x3 product
 TOL_HESS = {"H": 1e-5, "J": 1e-4, "D": 1e-4}
 # the card against the plain CPU path at the slice's full size (phase 6).
 # The evaluate at the perturbed poses: res relative to itself, J and H
@@ -115,6 +134,8 @@ SLICE_ITERS = 3
 # slice 2's paths (phase 7): name -> damping_iter options, and the kernel
 # counted on each
 SLICE2 = (("pallas2", dict(packed_impl="pallas2"), "hess_v2"),
+          ("pallas2_highest", dict(packed_impl="pallas2",
+                                   hess_precision="highest"), "hess_v2"),
           ("pallas3", dict(packed_impl="pallas3"), "hess_v3"),
           ("pallas", dict(packed_impl="pallas"), "hess_v1"),
           ("xla", dict(packed_impl="xla"), "rows"),
@@ -310,9 +331,22 @@ def check_kernels(pose, pk, tag):
     return out, aux
 
 
+def same_bits(what, fn):
+    """Raise unless two launches of fn give bitwise-equal outputs."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{what}: two launches differ")
+    log(f"  {what}: two launches give the same bits")
+    return a
+
+
 def check_hess(pose, pk, aux, tag, bws=(None,)):
-    """B6, B4 and B5 against their plain versions on the same CUDA
-    inputs; returns records keyed by kernel name."""
+    """B6, B4 (both splits) and B5 against their plain versions on the
+    same CUDA inputs, B6 and B4 launched twice for the same bits; returns
+    records keyed by kernel name (B4 at split 'f32' as 'hess_v2_f32')."""
     import torch
 
     from balm_tpu_torch.ops import packed_evaluate as pe
@@ -326,10 +360,14 @@ def check_hess(pose, pk, aux, tag, bws=(None,)):
                            TOL_HESS[o])
                 for o, a, b in zip(("H", "J", "D"), got, ref)}
 
-    ref = pe.hess_packed_plain(*args)
-    out["hess_v1"] = rec("hess_v1", pe.hess_packed(*args), ref)
-    out["hess_v2"] = rec("hess_v2", pe.hess_packed_v2(*args), ref)
-    del ref
+    for name, split, fn in (
+            ("hess_v1", "f32", lambda: pe.hess_packed(*args)),
+            ("hess_v2_f32", "f32",
+             lambda: pe.hess_packed_v2(*args, split="f32")),
+            ("hess_v2", "bf16x3", lambda: pe.hess_packed_v2(*args))):
+        what = f"{name.split('_f32')[0]} split={split}"
+        out[name] = rec(what, same_bits(f"[{tag}] {what}", fn),
+                        pe.hess_packed_plain(*args, split=split))
     for bw in bws:
         Bw = min(bw or pe.BW_HESS3, Wp)
         got = pe.hess_pairs_v3(*args, Bw)
@@ -376,9 +414,12 @@ def same_steps(name, out, ref, ref_name, n=SLICE_ITERS):
 
 
 def bounds(Wp, Gp):
-    """Least time (ms) for each kernel's work at this shape: the larger
-    of bytes (inputs read once, outputs written once) over HBM bandwidth
-    and flops over the fp32 peak."""
+    """Least time (ms) for each kernel's work at this shape: the largest
+    of bytes (inputs read once, outputs written once) over HBM bandwidth,
+    the fp32 (SIMT) flops over the fp32 peak and, for the fused-Hessian
+    kernels, the split's tensor-core passes over the needed entries at the
+    bf16 peak.  For those also `simt_bound_ms`, the bound with the whole
+    product at the fp32 peak (the earlier SIMT kernels' yardstick)."""
     wg = Wp * Gp
     csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
     rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
@@ -399,22 +440,58 @@ def bounds(Wp, Gp):
                  + nB * tri(6 * Bw)) * 3 * Gp
     rows_pass = ROWS_FLOPS_PER_WG * wg
     res = {}
-    for name, nbytes, flops in (
-            ("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg),
-            ("rows", rows_bytes, rows_pass),
-            ("hess_v1", in_bytes + 4 * (36 * Wp * Wp + 42 * Wp),
-             full + rows_pass),
-            ("hess_v2", in_bytes + 4 * (36 * Wp * Wp + 42 * Wp),
-             full + rows_pass),
-            ("hess_v3", in_bytes + 4 * (n_pairs * 36 * Bw * Bw
-                                        + 42 * nB * Bw),
-             pairs + rows_pass)):
+    h_bytes = in_bytes + 4 * (36 * Wp * Wp + 42 * Wp)
+    v3_bytes = in_bytes + 4 * (n_pairs * 36 * Bw * Bw + 42 * nB * Bw)
+    for name, nbytes, flops, prod, passes in (
+            ("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg, 0, 0),
+            ("rows", rows_bytes, rows_pass, 0, 0),
+            ("hess_v1", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
+            ("hess_v2", h_bytes, rows_pass, full, SPLIT_PASSES["bf16x3"]),
+            ("hess_v2_f32", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
+            ("hess_v3", v3_bytes, rows_pass, pairs, SPLIT_PASSES["f32"])):
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         tf = flops / PEAK_F32_FLOPS * 1e3
-        res[name] = {"bound_ms": max(tb, tf),
-                     "bound_by": "bytes" if tb >= tf else "operations",
-                     "bytes": nbytes, "flops": flops}
+        tt = passes * prod / PEAK_BF16_FLOPS * 1e3
+        res[name] = {"bound_ms": max(tb, tf, tt),
+                     "bound_by": "bytes" if tb >= max(tf, tt)
+                     else "operations",
+                     "bytes": nbytes, "flops": flops + passes * prod}
+        if prod:
+            res[name]["simt_bound_ms"] = max(
+                tb, (flops + prod) / PEAK_F32_FLOPS * 1e3)
     return res
+
+
+def sass_counts():
+    """Print the tensor-core (HGMMA, HMMA) and fp32 FMA instructions of
+    each fused-Hessian kernel in the built library (cuobjdump -sass, where
+    the toolkit has it); raise if B4/B6's kernel has no HGMMA."""
+    from balm_tpu_torch.ops import _cuda
+
+    tool = pathlib.Path(_cuda.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        log("  sass: cuobjdump not found, not checked")
+        return
+    out = subprocess.run([str(tool), "-sass", str(_cuda.LIB_PATH)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "hess" in fn:
+                counts[fn] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
+            else:
+                fn = None
+        elif fn:
+            for ins in counts[fn]:
+                if f" {ins}." in line or f" {ins} " in line:
+                    counts[fn][ins] += 1
+    for fn, c in counts.items():
+        log(f"  sass: {fn}: {c}")
+    if not any("hess_tri_kernel" in fn and c["HGMMA"] > 0
+               for fn, c in counts.items()):
+        raise AssertionError("no HGMMA in the B4/B6 kernel")
 
 
 # --------------------------------------------------------------------------
@@ -689,9 +766,10 @@ def main(argv=None) -> int:
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "entry function" in line:
             log(f"  ptxas: {line.strip()}")
     _cuda.lib()
+    sass_counts()
 
     log("phase 3/8 scene")
     t0 = time.perf_counter()
@@ -738,11 +816,13 @@ def main(argv=None) -> int:
                 "hess_v3": pe.hess_pairs_v3}
     n_launch0 = {k: c.launches for k, c in counters.items()}
     Bw = min(pe.BW_HESS3, pk.wp)
-    # B4 and B6 share one plain version; the library call is the same
-    # product in three fp32 torch.mm on B2's rows (never on the port's
-    # fused paths)
+    # B4 and B6 share one plain version (B4's bf16x3 split its own); the
+    # library call is the same product in three fp32 torch.mm on B2's
+    # rows (never on the port's fused paths)
     plain_hess = time_ms(lambda: pe.hess_packed_plain(*hargs), iters=3,
                          warmup=1)
+    plain_x3 = time_ms(lambda: pe.hess_packed_plain(*hargs, split="bf16x3"),
+                       iters=3, warmup=1)
     lib_ms = time_ms(lambda: pe._jw_product(rows_b), iters=10)
     del rows_b
     timing = {
@@ -753,10 +833,12 @@ def main(argv=None) -> int:
         "rows": (time_ms(lambda: pe.rows_packed(*hargs)),
                  time_ms(lambda: pe.rows_packed_plain(*hargs), iters=5),
                  None),
-        "hess_v1": (time_ms(lambda: pe.hess_packed(*hargs), iters=5),
+        "hess_v1": (time_ms(lambda: pe.hess_packed(*hargs), iters=10),
                     plain_hess, lib_ms),
-        "hess_v2": (time_ms(lambda: pe.hess_packed_v2(*hargs), iters=5),
-                    plain_hess, lib_ms),
+        "hess_v2": (time_ms(lambda: pe.hess_packed_v2(*hargs), iters=10),
+                    plain_x3, lib_ms),
+        "hess_v2_f32": (time_ms(lambda: pe.hess_packed_v2(
+            *hargs, split="f32"), iters=10), plain_hess, lib_ms),
         "hess_v3": (time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw), iters=5),
                     time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw),
                             iters=3, warmup=1), lib_ms),
@@ -766,9 +848,12 @@ def main(argv=None) -> int:
     for name, (ms, plain_ms, l_ms) in timing.items():
         bb = bnd[name]
         lib_txt = f", library {l_ms:.4f} ms" if l_ms is not None else ""
+        simt = (f" (fp32-SIMT bound: {bb['simt_bound_ms']:.4f} ms)"
+                if "simt_bound_ms" in bb else "")
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             f"{lib_txt}, bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
-            f"{bb['bytes']} B, {bb['flops']} flop) at Wp={pk.wp} "
+            f"{bb['bytes']} B, {bb['flops']} flop){simt}, "
+            f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
     log("phase 5/8 small slice: card vs plain CPU path")
@@ -920,13 +1005,25 @@ def main(argv=None) -> int:
             ("hess_v1", src2, "balm_tpu/ops/pallas_evaluate.py:284", "H",
              slice2["pallas"])):
         ms, plain_ms, l_ms = timing[name]
-        kernels.append({
+        rec = {
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": path_launches[name],
             "max_abs_err": recs[name][main_key]["abs"],
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
-            "bound_by": bnd[name]["bound_by"], "library_ms": l_ms})
+            "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
+        if "simt_bound_ms" in bnd[name]:
+            rec["simt_bound_ms"] = bnd[name]["simt_bound_ms"]
+        if name == "hess_v2":
+            rec["err_by_output"]["split_f32"] = recs["hess_v2_f32"]
+            rec["by_split"] = {
+                sp: {"ms": timing[k][0], "plain_ms": timing[k][1],
+                     "bound_ms": bnd[k]["bound_ms"],
+                     "launches": slice2[path][name]}
+                for sp, k, path in (("bf16x3", "hess_v2", "pallas2"),
+                                    ("f32", "hess_v2_f32",
+                                     "pallas2_highest"))}
+        kernels.append(rec)
     kernels.append(rec_b7)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)

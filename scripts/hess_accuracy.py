@@ -7,10 +7,12 @@ On chip_smoke.py's random packed problem (ragged_problem: PSD moments,
 counts up to 40, some scans not observing) at the slice's size, it
 builds the plain rank rows on the card, forms Htilde = sum_k M_k M_k^T
 in float64 from them, and prints max|H - H64| / max|H64| for the plain
-version (rows + fp32 torch.mm), the hybrid path (B2 + fp32 torch.mm) and
-the fused kernels B6 `hess_v1`, B4 `hess_v2` and B5 `hess_v3` (mirrored
-to the full matrix and compared in its (w, j)-major order).  The card's
-name and power limit come first.  Needs one CUDA card and nvcc.
+version (rows + fp32 torch.mm, and its bf16x3 form), the hybrid path
+(B2 + fp32 torch.mm) and the fused kernels B6 `hess_v1` (the exact bf16
+split), B4 `hess_v2` at split 'bf16x3' (its default, the JAX kernel's
+product) and 'f32' (exact), and B5 `hess_v3` (mirrored to the full
+matrix and compared in its (w, j)-major order).  The card's name and
+power limit come first.  Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -51,11 +53,15 @@ def main(argv=None) -> int:
     del M
     scale = float(H64.abs().max())
     wj = H64.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(6 * Wp, 6 * Wp)
+    x3 = dict(split="bf16x3")
+    f32 = dict(split="f32")
     for name, fn, ref in (
             ("plain", pe.hess_packed_plain, H64),
+            ("plain bf16x3", lambda *a: pe.hess_packed_plain(*a, **x3), H64),
             ("hybrid", pe.hess_packed_hybrid, H64),
             ("hess_v1", pe.hess_packed, H64),
-            ("hess_v2", pe.hess_packed_v2, H64),
+            ("hess_v2 bf16x3", lambda *a: pe.hess_packed_v2(*a, **x3), H64),
+            ("hess_v2 f32", lambda *a: pe.hess_packed_v2(*a, **f32), H64),
             ("hess_v3", pe.hess_packed_v3, wj)):
         H = fn(*hargs)[0]
         err = float((H.double() - ref).abs().max()) / scale

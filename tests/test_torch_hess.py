@@ -10,10 +10,11 @@ tests do.  The CUDA kernels are held against these plain versions on the
 GPU by chip_smoke.py.
 
 Tolerances (f32 throughout; the two sides sum in different orders):
-  * Htilde: 1e-5 of max|.| against split='f32' (the bar of
-    tests/test_pallas_evaluate.py:158-159) and 1e-4 against the default
-    bf16x3 split, whose three bf16 products the port replaces with the
-    exact fp32 one
+  * Htilde: 1e-5 of max|.| (the bar of tests/test_pallas_evaluate.py:
+    158-159) against split='f32', and for B4 against the default bf16x3
+    split too, which both sides compute as three products of the same
+    bf16 pieces; 1e-4 for B5 against bf16x3, whose product the port
+    keeps exact (ROADMAP queue C, C4)
   * J and D: 1e-4 of max|.|
   * evaluate_packed: res 1e-5 relative, J and H 1e-4 of max|.| (the bars
     of tests/test_pallas_evaluate.py:124-178)
@@ -25,6 +26,7 @@ Tolerances (f32 throughout; the two sides sum in different orders):
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 import pytest
 import torch
 
@@ -70,7 +72,7 @@ def test_hess_v1_plain_matches_jax():
                1e-5)
 
 
-@pytest.mark.parametrize("split,h_tol", [("f32", 1e-5), ("bf16x3", 1e-4)])
+@pytest.mark.parametrize("split,h_tol", [("f32", 1e-5), ("bf16x3", 1e-5)])
 def test_hess_v2_plain_matches_jax(split, h_tol):
     j, t = _hess_inputs(MULTI)
     _check_hjd(tpe.hess_packed_v2(*t, split=split),
@@ -99,6 +101,52 @@ def test_hess_v3_plain_matches_jax(bw, split, h_tol):
               .reshape(6 * bw, 6 * bw) for I, J in tpe._pairs(nB)]
     assert _relmax(Hblk, torch.cat(blocks)) < 1e-6
     assert Jb.shape == (nB * bw, 6) and not Jb[24:].any()
+
+
+def test_split_bf16_matches_jax():
+    """split_bf16's pieces are JAX's astype bits (pallas_evaluate.py:
+    524-525 for bf16x3), and three pieces sum back to the input exactly."""
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=4096) * np.exp(rng.uniform(-30, 30, 4096))
+         ).astype(np.float32)
+    x[:4] = (0.0, -0.0, 1.0, np.float32(2.0 ** -130))
+    hi, lo = tpe.split_bf16(torch.from_numpy(x), 2)
+    jhi = jnp.asarray(x).astype(jnp.bfloat16)
+    jlo = (jnp.asarray(x) - jhi.astype(jnp.float32)).astype(jnp.bfloat16)
+    bits = lambda t: t.view(torch.int16).numpy()
+    assert np.array_equal(bits(hi), np.asarray(jhi).view(np.int16))
+    assert np.array_equal(bits(lo), np.asarray(jlo).view(np.int16))
+    pieces = tpe.split_bf16(torch.from_numpy(x), 3)
+    assert pieces[0].equal(hi) and pieces[1].equal(lo)
+    total = sum(p.double() for p in pieces)
+    assert np.array_equal(total.numpy(), x.astype(np.float64))
+    with pytest.raises(ValueError, match="pieces"):
+        tpe.split_bf16(torch.from_numpy(x), 4)
+
+
+@pytest.mark.parametrize("impl", ["pallas2", "pallas3"])
+def test_split_follows_hess_precision_as_in_jax(impl, monkeypatch):
+    """evaluate_packed hands the fused kernel JAX's split for each
+    hess_precision (pallas_evaluate.py:999-1018, with lm.py:195's map of
+    the strings): None and 'highest' give 'f32', 'high' gives 'bf16x3'."""
+    R32, p32, f32, packed, _ = _jax_inputs(MULTI)
+    pkt = tpk.pack_factors(
+        tF.factors_from_numpy([np.asarray(x) for x in f32]))
+    seen = {"jax": [], "port": []}
+    name = {"pallas2": "hess_packed_v2", "pallas3": "hess_packed_v3"}[impl]
+    for mod, key in ((jpe, "jax"), (tpe, "port")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _k=key, **kw: (
+            seen[_k].append(kw["split"]) or _r(*a, **kw)))
+    for port_hp, jax_hp in ((None, None), ("highest", None),
+                            ("high", lax.Precision.HIGH)):
+        jpe.evaluate_packed(R32, p32, packed, impl=impl, interpret=True,
+                            hess_precision=jax_hp)
+        tpe.evaluate_packed(_t(R32), _t(p32), pkt, impl=impl,
+                            hess_precision=port_hp)
+    assert seen["port"] == seen["jax"] == ["f32", "f32", "bf16x3"]
+    assert [tpe.split_of(h) for h in (None, "highest", "high")] == \
+        ["f32", "f32", "bf16x3"]
 
 
 def test_hess_xla_matches_jax():
