@@ -23,13 +23,17 @@ as it starts and ends; any failure raises and the script exits non-zero:
                (W=24, bw 8 and 16, the last block ragged at 16), and the
                fused-Hessian kernels on random moments at the slice's
                shape (W=256, G=11520), where fp32 accumulation drift
-               would show; B4 `hess_v2` at both splits ('bf16x3' against
-               the plain bf16x3 product, 'f32' against the exact one) and
-               B6 `hess_v1` (exact), each also launched twice for the same
-               bits; CUDA-event
-               times beside each kernel's bound, its plain version's time
-               and, for the fused-Hessian kernels, the library time of the
-               same product (three fp32 torch.mm on B2's rows)
+               would show; B4 `hess_v2` at split 'bf16x3' against the plain
+               bf16x3 product and B6 `hess_v1` (exact) against the exact
+               one, each also launched twice for the same bits, and B4 at
+               split 'f32' bitwise equal to B6 (the same instantiation);
+               on the random moments also B4 and B6 against float64
+               products of the plain rows (TOL_F64); CUDA-event times
+               beside each kernel's bound, its plain version's time and,
+               for the fused-Hessian kernels, the library time of the same
+               product (exact: three fp32 torch.mm on B2's rows; bf16x3:
+               one bf16 torch.mm with fp32 output over the concatenated
+               pieces)
   5. small   - optimize_poses on the card against the plain CPU path on a
                small scene
   6. slice   - the main path: optimize_poses(..., backend='packed') on
@@ -72,13 +76,12 @@ launches in the run of the kernel's own path (phase 6 for csum and rows,
 phase 7 for B4-B6, phase 8 (b) for B7), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
-"random_W256_G11520", their errors on the random moments of phase 4,
-and for B4 under "split_f32" its errors at split='f32'; for B7 per dtype
-and problem, with `ms`, `plain_ms` and `bound_ms` also by dtype and
-residual_moments' time).  B4's `ms`, `plain_ms`, `bound_ms` are those
-of its default split (bf16x3); `by_split` holds both.  The fused-Hessian
-kernels' `simt_bound_ms` is their bound with the whole product on the
-fp32 SIMT pipe, kept to compare with earlier rows.  The last line is
+"random_W256_G11520", their errors on the random moments of phase 4;
+for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
+by dtype and residual_moments' time).  B4's `ms`, `plain_ms`, `bound_ms`
+and `library_ms` are those of its default split (bf16x3); `by_split`
+holds both, 'f32' with hess_v1's numbers (one instantiation).  The last
+line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -120,6 +123,14 @@ TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
 # and by cuBLAS in its own blocking; B4's bf16x3 split is held against
 # the plain bf16x3 product
 TOL_HESS = {"H": 1e-5, "J": 1e-4, "D": 1e-4}
+# B4 and B6 against float64 products of the plain rows on the random
+# W=256, G=11520 moments, relative to max|H64|: the exact split against
+# the exact product, the bf16x3 split against the f64 sum of its own three
+# piece products.  Each reads ~5e-7 (fp32 accumulation); a swapped split
+# reads ~3e-6 (the bf16x3 products leave out the small pieces' terms), and
+# so does one tensor-core accumulator over many chunks: the bar lies below
+# that gap
+TOL_F64 = 1.5e-6
 # the card against the plain CPU path at the slice's full size (phase 6).
 # The evaluate at the perturbed poses: res relative to itself, J and H
 # relative to their max|.| (the bars of tests/test_pallas_evaluate.py:
@@ -343,17 +354,49 @@ def same_bits(what, fn):
     return a
 
 
-def check_hess(pose, pk, aux, tag, bws=(None,)):
+def bf16x3_operands(rows):
+    """rows (3, 6, Wp, Gp) fp32 -> bf16 (A, B), each (6Wp, 9Gp), with
+    A B^T = sum_k hi_k hi_k^T + hi_k lo_k^T + lo_k hi_k^T: the bf16x3
+    product as one GEMM (A = [hi|hi|lo], B = [hi|lo|hi])."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    n6, Gp = 6 * rows.shape[2], rows.shape[3]
+    hi, lo = pe.split_bf16(rows.view(3, n6, Gp), 2)
+    cat = lambda *ps: torch.cat([p[k] for p in ps for k in range(3)], 1)
+    return cat(hi, hi, lo), cat(hi, lo, hi)
+
+
+def f64_products(rows):
+    """rows (3, 6, Wp, Gp) fp32 -> (the exact product, the bf16x3 one),
+    each sum_k M_k M_k^T (6Wp, 6Wp) (j, w)-major formed in float64: the
+    second from the rows' bf16 hi/lo pieces as hi hi^T + hi lo^T +
+    lo hi^T."""
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    n6, Gp = 6 * rows.shape[2], rows.shape[3]
+    M = rows.view(3, n6, Gp)
+    hi, lo = (p.double() for p in pe.split_bf16(M, 2))
+    H64 = sum(m @ m.T for m in M.double())
+    H64x3 = sum(hi[k] @ hi[k].T + hi[k] @ lo[k].T + lo[k] @ hi[k].T
+                for k in range(3))
+    return H64, H64x3
+
+
+def check_hess(pose, pk, aux, tag, bws=(None,), f64=False):
     """B6, B4 (both splits) and B5 against their plain versions on the
-    same CUDA inputs, B6 and B4 launched twice for the same bits; returns
-    records keyed by kernel name (B4 at split 'f32' as 'hess_v2_f32')."""
+    same CUDA inputs, B6 and B4 launched twice for the same bits, and B4
+    at split 'f32' bitwise equal to B6 (one instantiation).  With `f64`,
+    B6 and B4 also against float64 products of the plain rows within
+    TOL_F64.  Returns records keyed by kernel name."""
     import torch
 
     from balm_tpu_torch.ops import packed_evaluate as pe
 
     Wp, Gp = pk.wp, pk.gp
     args = (pose, pk.mom, pk.cen, aux)
-    out = {}
+    out, got = {}, {}
 
     def rec(name, got, ref):
         return {o: compare(f"[{tag}] {name}/{o} Wp={Wp} Gp={Gp}", a, b,
@@ -362,12 +405,35 @@ def check_hess(pose, pk, aux, tag, bws=(None,)):
 
     for name, split, fn in (
             ("hess_v1", "f32", lambda: pe.hess_packed(*args)),
-            ("hess_v2_f32", "f32",
-             lambda: pe.hess_packed_v2(*args, split="f32")),
             ("hess_v2", "bf16x3", lambda: pe.hess_packed_v2(*args))):
-        what = f"{name.split('_f32')[0]} split={split}"
-        out[name] = rec(what, same_bits(f"[{tag}] {what}", fn),
+        what = f"{name} split={split}"
+        got[split] = same_bits(f"[{tag}] {what}", fn)
+        out[name] = rec(what, got[split],
                         pe.hess_packed_plain(*args, split=split))
+    v2_f32 = pe.hess_packed_v2(*args, split="f32")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(v2_f32, got["f32"])):
+        raise AssertionError(f"[{tag}] hess_v2 split=f32 differs from "
+                             f"hess_v1")
+    log(f"  [{tag}] hess_v2 split=f32: the same bits as hess_v1")
+    del v2_f32
+    if f64:
+        H64, H64x3 = f64_products(pe.rows_packed_plain(*args)[0])
+        scale = float(H64.abs().max())
+        plain = {sp: pe.hess_packed_plain(*args, split=sp)[0]
+                 for sp in ("f32", "bf16x3")}
+        for what, H, ref, check in (
+                ("plain exact vs H64", plain["f32"], H64, False),
+                ("plain bf16x3 vs H64x3", plain["bf16x3"], H64x3, False),
+                ("hess_v1/hess_v2 exact vs H64", got["f32"][0], H64, True),
+                ("hess_v2 bf16x3 vs H64x3", got["bf16x3"][0], H64x3, True),
+                ("hess_v2 bf16x3 vs H64", got["bf16x3"][0], H64, False)):
+            rel = float((H.double() - ref).abs().max()) / scale
+            log(f"  [{tag}] {what}: max|H - ref| / max|H64| = {rel:.3e}"
+                + (f" (tol {TOL_F64:.1e})" if check else ""))
+            if check and not (np.isfinite(rel) and rel <= TOL_F64):
+                raise AssertionError(f"[{tag}] {what}: {rel} > {TOL_F64}")
+        del H64, H64x3, plain
     for bw in bws:
         Bw = min(bw or pe.BW_HESS3, Wp)
         got = pe.hess_pairs_v3(*args, Bw)
@@ -419,7 +485,9 @@ def bounds(Wp, Gp):
     the fp32 (SIMT) flops over the fp32 peak and, for the fused-Hessian
     kernels, the split's tensor-core passes over the needed entries at the
     bf16 peak.  For those also `simt_bound_ms`, the bound with the whole
-    product at the fp32 peak (the earlier SIMT kernels' yardstick)."""
+    product at the fp32 peak (the earlier SIMT kernels' yardstick), for
+    the log only.  B4 at split 'f32' is hess_v1's instantiation and
+    bound."""
     wg = Wp * Gp
     csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
     rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
@@ -447,7 +515,6 @@ def bounds(Wp, Gp):
             ("rows", rows_bytes, rows_pass, 0, 0),
             ("hess_v1", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
             ("hess_v2", h_bytes, rows_pass, full, SPLIT_PASSES["bf16x3"]),
-            ("hess_v2_f32", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
             ("hess_v3", v3_bytes, rows_pass, pairs, SPLIT_PASSES["f32"])):
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         tf = flops / PEAK_F32_FLOPS * 1e3
@@ -464,14 +531,14 @@ def bounds(Wp, Gp):
 
 def sass_counts():
     """Print the tensor-core (HGMMA, HMMA) and fp32 FMA instructions of
-    each fused-Hessian kernel in the built library (cuobjdump -sass, where
-    the toolkit has it); raise if B4/B6's kernel has no HGMMA."""
+    each fused-Hessian kernel in the built library (cuobjdump -sass, which
+    ships with nvcc); raise unless both instantiations of B4/B6's kernel,
+    hess_tri_kernel<2> (bf16x3) and <3> (exact), hold HGMMA."""
     from balm_tpu_torch.ops import _cuda
 
     tool = pathlib.Path(_cuda.nvcc_path()).with_name("cuobjdump")
     if not tool.exists():
-        log("  sass: cuobjdump not found, not checked")
-        return
+        raise AssertionError(f"{tool} not found: cannot check the SASS")
     out = subprocess.run([str(tool), "-sass", str(_cuda.LIB_PATH)],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
@@ -489,9 +556,11 @@ def sass_counts():
                     counts[fn][ins] += 1
     for fn, c in counts.items():
         log(f"  sass: {fn}: {c}")
-    if not any("hess_tri_kernel" in fn and c["HGMMA"] > 0
-               for fn, c in counts.items()):
-        raise AssertionError("no HGMMA in the B4/B6 kernel")
+    for pieces in (2, 3):
+        inst = f"hess_tri_kernelILi{pieces}E"
+        if not any(inst in fn and c["HGMMA"] > 0
+                   for fn, c in counts.items()):
+            raise AssertionError(f"no HGMMA in hess_tri_kernel<{pieces}>")
 
 
 # --------------------------------------------------------------------------
@@ -804,7 +873,8 @@ def main(argv=None) -> int:
     pose_b, pk_b = ragged_problem(args.seed + 1, W=SCANS, G=11520,
                                   device=dev)
     _, aux_b = check_kernels(pose_b, pk_b, "random W=256 G=11520")
-    recs_b = check_hess(pose_b, pk_b, aux_b, "random W=256 G=11520")
+    recs_b = check_hess(pose_b, pk_b, aux_b, "random W=256 G=11520",
+                        f64=True)
     for name, r in recs_b.items():
         recs[name]["random_W256_G11520"] = r
     del pose_b, pk_b, aux_b
@@ -816,15 +886,24 @@ def main(argv=None) -> int:
                 "hess_v3": pe.hess_pairs_v3}
     n_launch0 = {k: c.launches for k, c in counters.items()}
     Bw = min(pe.BW_HESS3, pk.wp)
-    # B4 and B6 share one plain version (B4's bf16x3 split its own); the
-    # library call is the same product in three fp32 torch.mm on B2's
-    # rows (never on the port's fused paths)
+    # B4 and B6 share one plain version (B4's bf16x3 split its own).  The
+    # library calls (never on the port's fused paths), on B2's rows: the
+    # exact product as three fp32 torch.mm; the bf16x3 one as one bf16
+    # torch.mm with fp32 output, [hi|hi|lo] [hi|lo|hi]^T over 9 Gp, the
+    # pieces split and concatenated beforehand (timed apart)
     plain_hess = time_ms(lambda: pe.hess_packed_plain(*hargs), iters=3,
                          warmup=1)
     plain_x3 = time_ms(lambda: pe.hess_packed_plain(*hargs, split="bf16x3"),
                        iters=3, warmup=1)
     lib_ms = time_ms(lambda: pe._jw_product(rows_b), iters=10)
-    del rows_b
+    x3_prep_ms = time_ms(lambda: bf16x3_operands(rows_b), iters=10)
+    a3, b3 = bf16x3_operands(rows_b)
+    lib_x3_ms = time_ms(lambda: torch.mm(a3, b3.T, out_dtype=torch.float32),
+                        iters=10)
+    log(f"  library bf16x3: one bf16 torch.mm {lib_x3_ms:.4f} ms over "
+        f"K={a3.shape[1]}, its operands' split and concatenation "
+        f"{x3_prep_ms:.4f} ms; exact: three fp32 torch.mm {lib_ms:.4f} ms")
+    del rows_b, a3, b3
     timing = {
         "csum": (time_ms(lambda: pe.csum_packed(pose, pk.mom, pk.cen,
                                                 pk.cfix)),
@@ -836,9 +915,7 @@ def main(argv=None) -> int:
         "hess_v1": (time_ms(lambda: pe.hess_packed(*hargs), iters=10),
                     plain_hess, lib_ms),
         "hess_v2": (time_ms(lambda: pe.hess_packed_v2(*hargs), iters=10),
-                    plain_x3, lib_ms),
-        "hess_v2_f32": (time_ms(lambda: pe.hess_packed_v2(
-            *hargs, split="f32"), iters=10), plain_hess, lib_ms),
+                    plain_x3, lib_x3_ms),
         "hess_v3": (time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw), iters=5),
                     time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw),
                             iters=3, warmup=1), lib_ms),
@@ -1012,16 +1089,14 @@ def main(argv=None) -> int:
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
-        if "simt_bound_ms" in bnd[name]:
-            rec["simt_bound_ms"] = bnd[name]["simt_bound_ms"]
         if name == "hess_v2":
-            rec["err_by_output"]["split_f32"] = recs["hess_v2_f32"]
             rec["by_split"] = {
                 sp: {"ms": timing[k][0], "plain_ms": timing[k][1],
+                     "library_ms": timing[k][2],
                      "bound_ms": bnd[k]["bound_ms"],
                      "launches": slice2[path][name]}
                 for sp, k, path in (("bf16x3", "hess_v2", "pallas2"),
-                                    ("f32", "hess_v2_f32",
+                                    ("f32", "hess_v1",
                                      "pallas2_highest"))}
         kernels.append(rec)
     kernels.append(rec_b7)

@@ -124,6 +124,28 @@ def test_split_bf16_matches_jax():
         tpe.split_bf16(torch.from_numpy(x), 4)
 
 
+def test_smoke_reference_products():
+    """chip_smoke.py's float64 references and the bf16x3 library form:
+    f64_products gives the exact product of the rows and the three-piece
+    bf16x3 sum; bf16x3_operands' one GEMM is that sum (exact in f64, the
+    pieces being bf16); the plain versions come within 1e-5 of each."""
+    import chip_smoke
+
+    _, t = _hess_inputs(MULTI)
+    rows = tpe.rows_packed_plain(*t)[0]
+    H64, H64x3 = chip_smoke.f64_products(rows)
+    M = rows.double().reshape(3, -1, rows.shape[-1])
+    assert torch.allclose(H64, sum(m @ m.T for m in M), rtol=0, atol=0)
+    A, B = chip_smoke.bf16x3_operands(rows)
+    assert A.dtype == B.dtype == torch.bfloat16
+    assert A.shape == B.shape == (M.shape[1], 9 * M.shape[2])
+    assert _relmax(A.double() @ B.double().T, H64x3) < 1e-12
+    for split, ref in (("f32", H64), ("bf16x3", H64x3)):
+        assert _relmax(tpe.hess_packed_plain(*t, split=split)[0],
+                       ref) < 1e-5
+    assert _relmax(H64x3, H64) > 1e-7
+
+
 @pytest.mark.parametrize("impl", ["pallas2", "pallas3"])
 def test_split_follows_hess_precision_as_in_jax(impl, monkeypatch):
     """evaluate_packed hands the fused kernel JAX's split for each
