@@ -1,6 +1,7 @@
-// CUDA C++ kernels of the fused-Hessian packed evaluate, for sm_90a.
+// CUDA C++ kernels B4 and B6 of the fused-Hessian packed evaluate, for
+// sm_90a.
 //
-// All three compute one function of the packed layout (see
+// Both compute one function of the packed layout (see
 // packed_kernels.cu for the arrays): the rank rows of every (scan, plane)
 // -- rows_point, the same device body as B2 `rows` -- and, without ever
 // writing the rows to device memory,
@@ -68,257 +69,22 @@
 // sequential plane grid; on the card the plane splits run in parallel and
 // the cross-block sum is the second pass.
 //
-// B5 `hess_v3` replaces the Pallas `_hess_kernel_v3` (:604, wrapper
-// hess_packed_v3 :697): the lower triangle of pose-block pairs at Bw scans
-// (Bw = 128 by default), each pair's (6 Bw) x (6 Bw) block split over
-// (Bw / 16)^2 blocks of threads, each walking every plane.  It writes the
-// raw pair blocks, (j, w)-major inside each; J and D come from the
-// diagonal sub-tiles of diagonal pairs.  The mirror into the full matrix
-// is glue (ops/packed_evaluate.py).  Its body (tile_accumulate) is the
-// exact fp32 product on the SIMT pipe: a block of 256 threads owns an
-// output tile of BT = 16 scans a side; per chunk of BK = 16 planes every
-// thread builds one (scan, plane) of each side with rows_point into
-// shared memory, then adds its (6 BT / 16)^2 micro-tile of A B^T with
-// fp32 FMA, flushed into the block's own output entries every 384 terms.
+// B5 `hess_v3` (the Pallas `_hess_kernel_v3`, :604) lives in
+// hess_v3_kernels.cu: the rows built once into bf16 pieces in device
+// memory, then the pose-block-pair product from bulk copies.
 //
-// Build: see packed_kernels.cu (one nvcc call builds both files).
+// Build: see packed_kernels.cu (one nvcc per source, then one link).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "rows_point.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per block: 16 x 16 for the product
 constexpr int kJDc = 42;        // J (6) + D (36) channels per scan
-
-template <int BT>
-struct Tile {
-  static constexpr int BK = kThreads / BT;  // planes per chunk
-  static constexpr int KD = 3 * BK;         // product depth per chunk
-  static constexpr int N = 6 * BT;          // tile side
-  static constexpr int LD = N + 4;          // shared row stride (banks)
-  static constexpr int TM = N / 16;         // micro-tile side per thread
-  static constexpr int kSmemFloats = 2 * KD * LD + kJDc * kThreads;
-};
-
-__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
-  return (a + b - 1) / b;
-}
-
-// Rows of one (scan w, plane g) into S[(3 gl + k) * LD + j * BT + wl]; with
-// JD the point's J and D channels are added to this thread's slots.
-template <int BT, bool JD>
-__device__ __forceinline__ void build_point(
-    const float* __restrict__ pose, const float* __restrict__ mom,
-    const float* __restrict__ cen, const float* __restrict__ aux,
-    int64_t Gp, int64_t w, bool live, int64_t g, int wl, int gl,
-    float* __restrict__ S, float* __restrict__ jd) {
-  using T = Tile<BT>;
-  float rw[6][3];
-  if (live) {
-    float r[12], m[10], c[3], ax[17];
-    for (int i = 0; i < 12; ++i) r[i] = pose[w * 12 + i];
-    for (int i = 0; i < 10; ++i) m[i] = mom[(w * 10 + i) * Gp + g];
-    for (int i = 0; i < 3; ++i) c[i] = cen[i * Gp + g];
-    for (int i = 0; i < 17; ++i) ax[i] = aux[i * Gp + g];
-    float jv[6], D[36];
-    rows_point(r, m, c, ax, rw, jv, D);
-    if (JD) {
-      for (int i = 0; i < 6; ++i) jd[i * kThreads + threadIdx.x] += jv[i];
-      for (int i = 0; i < 36; ++i)
-        jd[(6 + i) * kThreads + threadIdx.x] += D[i];
-    }
-  } else {
-    for (int j = 0; j < 6; ++j)
-      for (int k = 0; k < 3; ++k) rw[j][k] = 0.f;
-  }
-  for (int k = 0; k < 3; ++k)
-    for (int j = 0; j < 6; ++j)
-      S[(3 * gl + k) * T::LD + j * BT + wl] = rw[j][k];
-}
-
-// acc += A B^T over one chunk.  Thread (ty, tx) owns rows 32 i + 2 ty + e
-// and columns 32 i + 2 tx + e (e = 0, 1): float2 loads, conflict-free.
-template <int BT>
-__device__ __forceinline__ void chunk_product(
-    const float* __restrict__ As, const float* __restrict__ Bs,
-    float (&acc)[Tile<BT>::TM][Tile<BT>::TM]) {
-  using T = Tile<BT>;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll 2
-  for (int kk = 0; kk < T::KD; ++kk) {
-    float a[T::TM], b[T::TM];
-#pragma unroll
-    for (int i = 0; i < T::TM / 2; ++i) {
-      const float2 va =
-          *reinterpret_cast<const float2*>(As + kk * T::LD + 32 * i + 2 * ty);
-      const float2 vb =
-          *reinterpret_cast<const float2*>(Bs + kk * T::LD + 32 * i + 2 * tx);
-      a[2 * i] = va.x;
-      a[2 * i + 1] = va.y;
-      b[2 * i] = vb.x;
-      b[2 * i + 1] = vb.y;
-    }
-#pragma unroll
-    for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::TM; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Calls out(r, c, value) for every entry of the thread's micro-tile, with
-// r, c the tile-local (j * BT + scan) indices.
-template <int BT, class Out>
-__device__ __forceinline__ void store_tile(
-    const float (&acc)[Tile<BT>::TM][Tile<BT>::TM], Out out) {
-  using T = Tile<BT>;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::TM; ++j)
-      out(32 * (i >> 1) + 2 * ty + (i & 1), 32 * (j >> 1) + 2 * tx + (j & 1),
-          acc[i][j]);
-}
-
-// The common body: the (6 BT)^2 tile of the product over plane chunks
-// [c0, c1) for row scans [wr0, wr0 + BT) and column scans [wc0, wc0 + BT),
-// each side built only below its limit (wr_lim, wc_lim; zero rows past
-// it).  same: the two sides are the same scans (rows built once, J and D
-// summed into the slots).  The register tile is flushed into the block's
-// own output entries every kFlushTerms product terms, out(r, c, v, first)
-// storing v on the first flush and adding it after: a single fp32 running
-// sum over all 3 Gp terms (34,560 at Gp = 11520) drops the terms below
-// half an ulp of the sum and drifted 6.4e-5 of max|H| from the plain
-// version; ~90 partial sums of 384 terms each, added in a fixed order,
-// keep that error at the product's own rounding (PERF.md).
-constexpr int kFlushTerms = 384;
-
-template <int BT, class Out>
-__device__ __forceinline__ void tile_accumulate(
-    const float* __restrict__ pose, const float* __restrict__ mom,
-    const float* __restrict__ cen, const float* __restrict__ aux,
-    int64_t Gp, int64_t wr0, int64_t wr_lim, int64_t wc0, int64_t wc_lim,
-    bool same, int64_t c0, int64_t c1, float* smem, Out out) {
-  using T = Tile<BT>;
-  constexpr int kFlushChunks = kFlushTerms / T::KD;
-  float* As = smem;
-  float* Bs = smem + T::KD * T::LD;
-  float* jd = smem + 2 * T::KD * T::LD;
-  const int gl = threadIdx.x % T::BK, wl = threadIdx.x / T::BK;
-  float acc[T::TM][T::TM];
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::TM; ++j) acc[i][j] = 0.f;
-  if (same)
-    for (int i = 0; i < kJDc; ++i) jd[i * kThreads + threadIdx.x] = 0.f;
-  bool first = true;
-  int since = 0;
-  for (int64_t ch = c0; ch < c1; ++ch) {
-    const int64_t g = ch * T::BK + gl;
-    const bool gl_live = g < Gp;
-    __syncthreads();  // the previous chunk's product has read As, Bs
-    if (same) {
-      build_point<BT, true>(pose, mom, cen, aux, Gp, wr0 + wl,
-                            gl_live && wr0 + wl < wr_lim, g, wl, gl, As, jd);
-    } else {
-      build_point<BT, false>(pose, mom, cen, aux, Gp, wr0 + wl,
-                             gl_live && wr0 + wl < wr_lim, g, wl, gl, As,
-                             nullptr);
-      build_point<BT, false>(pose, mom, cen, aux, Gp, wc0 + wl,
-                             gl_live && wc0 + wl < wc_lim, g, wl, gl, Bs,
-                             nullptr);
-    }
-    __syncthreads();
-    chunk_product<BT>(As, same ? As : Bs, acc);
-    if (++since == kFlushChunks || ch + 1 == c1) {
-      store_tile<BT>(acc, [&](int r, int c, float v) { out(r, c, v, first); });
-#pragma unroll
-      for (int i = 0; i < T::TM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::TM; ++j) acc[i][j] = 0.f;
-      first = false;
-      since = 0;
-    }
-  }
-  if (first)  // an empty plane range: zeros
-    store_tile<BT>(acc, [&](int r, int c, float v) { out(r, c, v, true); });
-}
-
-// Sums each scan's J/D slots over the threads that built its planes, in
-// order, and calls out(scan, channel, value) for scans below n.
-template <int BT, class Out>
-__device__ __forceinline__ void store_jd(const float* smem, int n, Out out) {
-  using T = Tile<BT>;
-  const float* jd = smem + 2 * T::KD * T::LD;
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n * kJDc; idx += kThreads) {
-    const int a = idx / kJDc, ch = idx % kJDc;
-    float s = 0.f;
-    for (int gl = 0; gl < T::BK; ++gl) s += jd[ch * kThreads + a * T::BK + gl];
-    out(a, ch, s);
-  }
-}
-
-constexpr int kBT3 = 16;  // B5 sub-tile
-
-// B5: grid (nsub^2, n_pairs); pair p = (I, J), I >= J, in the order
-// (0,0), (1,0), (1,1), (2,0), ...; sub-tile (si, sj) of the pair block.
-__global__ void __launch_bounds__(kThreads, 2)
-    hess_v3_kernel(const float* __restrict__ pose,
-                   const float* __restrict__ mom,
-                   const float* __restrict__ cen,
-                   const float* __restrict__ aux, float* __restrict__ Hblk,
-                   float* __restrict__ J, float* __restrict__ D, int64_t Wp,
-                   int64_t Gp, int64_t Bw) {
-  constexpr int BT = kBT3;
-  using T = Tile<BT>;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int64_t p = blockIdx.y;
-  int64_t I = 0;
-  while ((I + 1) * (I + 2) / 2 <= p) ++I;
-  const int64_t Jb = p - I * (I + 1) / 2;
-  const int64_t nsub = cdiv(Bw, BT);
-  const int64_t si = blockIdx.x / nsub, sj = blockIdx.x % nsub;
-  const int64_t wr0 = I * Bw + si * BT, wc0 = Jb * Bw + sj * BT;
-  const int64_t wr_lim = (I + 1) * Bw < Wp ? (I + 1) * Bw : Wp;
-  const int64_t wc_lim = (Jb + 1) * Bw < Wp ? (Jb + 1) * Bw : Wp;
-  const bool same = I == Jb && si == sj;
-  // rows and columns of the tile inside the pair block (padding scans
-  // past Wp but inside the last block are written as zeros)
-  const int64_t nr = Bw - si * BT < BT ? Bw - si * BT : BT;
-  const int64_t nc = Bw - sj * BT < BT ? Bw - sj * BT : BT;
-  const int64_t n6 = 6 * Bw;
-  float* Hp = Hblk + p * n6 * n6;
-  tile_accumulate<BT>(
-      pose, mom, cen, aux, Gp, wr0, wr_lim, wc0, wc_lim, same, 0,
-      cdiv(Gp, T::BK), smem, [&](int r, int c, float v, bool first) {
-        const int a = r % BT, b = c % BT;
-        if (a < nr && b < nc) {
-          float* h = Hp + ((r / BT) * Bw + si * BT + a) * n6 + (c / BT) * Bw +
-                     sj * BT + b;
-          *h = first ? v : *h + v;
-        }
-      });
-  if (same) {
-    store_jd<BT>(smem, (int)nr, [&](int a, int ch, float v) {
-      if (ch < 6) J[(wr0 + a) * 6 + ch] = v;
-      else D[(wr0 + a) * 36 + ch - 6] = v;
-    });
-  }
-}
-
-template <class K>
-cudaError_t allow_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
 
 // ---- B4 and B6: lower-triangle tiles on the tensor cores ------------------
 
@@ -353,48 +119,6 @@ struct TriSmem {
   static constexpr int kBytes = kBar + 4 * 8;    // full[2], empty[2]
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(b))
-               : "memory");
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.
-// A wait of more than 2^35 cycles (~19 s) traps: a lost arrival then ends
-// the launch with an error instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 35)) asm volatile("trap;\n");
-  } while (!done);
-}
-
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, int lbo,
-                                               int sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
-}
-
 __device__ __forceinline__ void acc_fence(float (&d)[24]) {
 #pragma unroll
   for (int i = 0; i < 24; ++i) asm volatile("" : "+f"(d[i])::"memory");
@@ -421,17 +145,6 @@ __device__ __forceinline__ void wgmma_48(float (&d)[24], uint64_t da,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// The split's products e < n_products(P), pieces (prod_a(e), prod_b(e)):
-// hi = 0, then lo = 1 (P = 2) or mid = 1, lo = 2 (P = 3).  P = 2: hh, hl,
-// lh; P = 3 adds hl, lh of the lo piece and mm.
-__host__ __device__ constexpr int n_products(int P) { return P == 2 ? 3 : 6; }
-__device__ __forceinline__ int prod_a(int e) {
-  return (e == 2 || e == 5) ? 1 : (e == 4 ? 2 : 0);
-}
-__device__ __forceinline__ int prod_b(int e) {
-  return (e == 1 || e == 5) ? 1 : (e == 3 ? 2 : 0);
 }
 
 // The pieces of x into piece 0.. of one side at byte offset off.
@@ -816,20 +529,4 @@ extern "C" int balm_hess_tri(const float* pose, const float* mom,
                                      D, Wp, Gp, nsplit, st)
                      : launch_tri<3>(pose, mom, cen, aux, Hpart, JDpart, H, J,
                                      D, Wp, Gp, nsplit, st));
-}
-
-extern "C" int balm_hess_v3(const float* pose, const float* mom,
-                            const float* cen, const float* aux, float* Hblk,
-                            float* J, float* D, int64_t Wp, int64_t Gp,
-                            int64_t Bw, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int bytes = Tile<kBT3>::kSmemFloats * (int)sizeof(float);
-  err = allow_smem(hess_v3_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t nB = cdiv(Wp, Bw), nsub = cdiv(Bw, kBT3);
-  const dim3 grid((unsigned)(nsub * nsub), (unsigned)(nB * (nB + 1) / 2));
-  hess_v3_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      pose, mom, cen, aux, Hblk, J, D, Wp, Gp, Bw);
-  return (int)cudaGetLastError();
 }

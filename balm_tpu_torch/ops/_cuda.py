@@ -1,6 +1,8 @@
 """Build and bind the CUDA kernels of csrc/ (B1 and B2 in
-packed_kernels.cu, B4, B5 and B6 in hess_kernels.cu, both including the
-shared per-element math of rows_point.cuh, and B7 in moments_kernels.cu).
+packed_kernels.cu, B4 and B6 in hess_kernels.cu, B5 in
+hess_v3_kernels.cu, all three including the shared per-element math of
+rows_point.cuh, the last two the Hopper helpers of sm90.cuh, and B7 in
+moments_kernels.cu).
 
 One `nvcc` process per source, all started together, compiles it to an
 object; one more links them into one shared library with a plain C
@@ -9,7 +11,8 @@ torch.utils.cpp_extension):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o <stem>.o csrc/<stem>.cu
-         (for packed_kernels, hess_kernels and moments_kernels at once)
+         (for packed_kernels, hess_kernels, hess_v3_kernels and
+          moments_kernels at once)
     nvcc -shared -o _build/libbalm_kernels.so *.o
 
 nvcc contracts products and sums into FMAs as it likes; the one place
@@ -45,7 +48,7 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "packed_kernels.cu", CSRC / "hess_kernels.cu",
-           CSRC / "moments_kernels.cu")
+           CSRC / "hess_v3_kernels.cu", CSRC / "moments_kernels.cu")
 BUILD_DIR = _PKG / "_build"
 LIB_PATH = BUILD_DIR / "libbalm_kernels.so"
 _STAMP = BUILD_DIR / "libbalm_kernels.sha256"
@@ -153,8 +156,14 @@ def lib():
         h.balm_hess_tile_floats.restype = i64
         h.balm_hess_tri.argtypes = [vp] * 9 + [i64, i64, i64, cint, cint, vp]
         h.balm_hess_tri.restype = cint
-        h.balm_hess_v3.argtypes = [vp] * 7 + [i64, i64, i64, cint, vp]
-        h.balm_hess_v3.restype = cint
+        h.balm_hess_v3_plan.argtypes = [i64, i64, i64, cint, cint, vp]
+        h.balm_hess_v3_plan.restype = cint
+        h.balm_hess_v3_pieces.argtypes = [vp] * 6 + [i64, i64, i64, cint,
+                                                     cint, vp]
+        h.balm_hess_v3_pieces.restype = cint
+        h.balm_hess_v3_pairs.argtypes = [vp] * 6 + [i64, i64, i64, cint,
+                                                    i64, cint, vp]
+        h.balm_hess_v3_pairs.restype = cint
         for name in ("balm_moments_f32", "balm_moments_f64"):
             fn = getattr(h, name)
             fn.argtypes = [vp] * 4 + [i64, i64, cint, vp]

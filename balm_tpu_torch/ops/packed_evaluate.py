@@ -22,15 +22,19 @@ The Hessian product H = sum_k M_k M_k^T of the hybrid and xla paths is a
 plain matrix product outside any kernel (torch.matmul, as the JAX package
 leaves it to XLA's dot), run in full fp32: TF32 is switched off around
 it (precision.fp32_matmul; the LM loop holds the same context), because TF32's 10-bit mantissa on moment math is the same silent
-corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4 and
-B6 compute the product inside their own bodies on the tensor cores as the
-TPU kernels do, from bf16 pieces of each value (split_bf16): `'bf16x3'`
-(three products of hi/lo pieces, B4's default and JAX's) or `'f32'` (six
-products of hi/mid/lo pieces, exact to fp32; B6 always, and B4 when
-asked).  B5 computes the exact fp32 product with FMA.
+corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4,
+B5 and B6 compute the product on the tensor cores as the TPU kernels do,
+from bf16 pieces of each value (split_bf16): `'bf16x3'` (three products
+of hi/lo pieces, the default of B4 and B5 and JAX's) or `'f32'` (six
+products of hi/mid/lo pieces, exact to fp32; B6 always, B4 and B5 when
+asked).  B4 and B6 build the rank rows inside the product kernel; B5
+writes the pieces of the rows to device memory once, then forms its pose
+block pairs from them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -422,19 +426,28 @@ def _hess_checked(pose, mom, cen, aux):
     return Wp, Gp
 
 
-def _jw_product_bf16x3(rows):
-    """_jw_product as the JAX kernel's bf16x3 dot: hi hi^T + hi lo^T +
-    lo hi^T, each an fp32 torch.mm on the upcast pieces."""
-    Wp, Gp = rows.shape[2], rows.shape[3]
-    hi, lo = (p.to(torch.float32)
-              for p in split_bf16(rows.view(3, 6 * Wp, Gp), 2))
+def _bf16x3_mm(A, B):
+    """sum_k hi_A[k] hi_B[k]^T + hi_A[k] lo_B[k]^T + lo_A[k] hi_B[k]^T for
+    A (3, n, Gp), B (3, m, Gp) fp32, hi and lo their split_bf16 pieces:
+    the JAX kernel's bf16x3 dot, each product an fp32 torch.mm on the
+    upcast pieces, in this order."""
+    ha, la = (p.to(torch.float32) for p in split_bf16(A, 2))
+    hb, lb = (ha, la) if B is A else (
+        p.to(torch.float32) for p in split_bf16(B, 2))
     terms = [(a[k], b[k]) for k in range(3)
-             for a, b in ((hi, hi), (hi, lo), (lo, hi))]
+             for a, b in ((ha, hb), (ha, lb), (la, hb))]
     with fp32_matmul():
         H = torch.mm(terms[0][0], terms[0][1].T)
         for a, b in terms[1:]:
             H.addmm_(a, b.T)
     return H
+
+
+def _jw_product_bf16x3(rows):
+    """_jw_product as the JAX kernel's bf16x3 dot (_bf16x3_mm)."""
+    Wp, Gp = rows.shape[2], rows.shape[3]
+    M = rows.view(3, 6 * Wp, Gp)
+    return _bf16x3_mm(M, M)
 
 
 def hess_packed_plain(pose, mom, cen, aux, *, split="f32"):
@@ -510,46 +523,97 @@ def _pairs(nB):
     return [(i, j) for i in range(nB) for j in range(i + 1)]
 
 
-def hess_pairs_v3_plain(pose, mom, cen, aux, bw):
+def hess_pairs_v3_plain(pose, mom, cen, aux, bw, *, split="bf16x3"):
     """Plain version of the B5 kernel: -> (raw pair blocks
     (n_pairs * 6bw, 6bw), each (j, w)-major inside, J (WpB, 6),
-    D (WpB, 36)) with WpB = bw * ceil(Wp / bw); scans past Wp are zero."""
+    D (WpB, 36)) with WpB = bw * ceil(Wp / bw); scans past Wp are zero.
+    Each pair block is the product of `split` (hess_packed_plain's): the
+    exact fp32 one at 'f32', _bf16x3_mm at 'bf16x3'."""
+    _split(split)
     rows, J, D = rows_packed_plain(pose, mom, cen, aux)
     Wp, Gp = mom.shape[0], mom.shape[2]
     nB = -(-Wp // bw)
     WpB = nB * bw
     rows = torch.nn.functional.pad(rows, (0, 0, 0, WpB - Wp))
     blocks = []
-    with fp32_matmul():
-        for I, J_ in _pairs(nB):
-            Mi = rows[:, :, I * bw:(I + 1) * bw].reshape(3, 6 * bw, Gp)
-            Mj = rows[:, :, J_ * bw:(J_ + 1) * bw].reshape(3, 6 * bw, Gp)
-            blocks.append(sum(Mi[k] @ Mj[k].T for k in range(3)))
+    for I, J_ in _pairs(nB):
+        Mi = rows[:, :, I * bw:(I + 1) * bw].reshape(3, 6 * bw, Gp)
+        Mj = rows[:, :, J_ * bw:(J_ + 1) * bw].reshape(3, 6 * bw, Gp)
+        if split == "bf16x3":
+            blocks.append(_bf16x3_mm(Mi, Mj))
+        else:
+            with fp32_matmul():
+                blocks.append(sum(Mi[k] @ Mj[k].T for k in range(3)))
     pad_w = lambda t: torch.nn.functional.pad(t, (0, 0, 0, WpB - Wp))
     return torch.cat(blocks), pad_w(J), pad_w(D)
 
 
-def hess_pairs_v3(pose, mom, cen, aux, bw):
+# bf16 pieces of each rank-row value in B5's split
+_PIECES = {"bf16x3": 2, "f32": 3}
+
+
+def _hess_v3_plan(Wp, Gp, bw, split, dev):
+    """B5's scratch sizes at this shape (balm_hess_v3_plan): (bf16 values
+    of the pieces, floats of the J/D partials, floats of one plane split's
+    partial tiles, plane splits)."""
+    out = (ctypes.c_int64 * 4)()
+    rc = _cuda.lib().balm_hess_v3_plan(Wp, Gp, bw, _PIECES[split],
+                                       dev.index, out)
+    _cuda.check_launch(rc, "hess_v3 plan")
+    return tuple(out)
+
+
+def _hess_v3_pieces(pose, mom, cen, aux, bw, split, plan):
+    """B5 stage 1 on CUDA tensors: -> (pieces, J/D partials), the split's
+    bf16 pieces of every rank-row value in wgmma's shared-memory layout."""
+    Wp, Gp = mom.shape[0], mom.shape[2]
+    dev = mom.device
+    pieces = torch.empty(plan[0], dtype=torch.bfloat16, device=dev)
+    JDpart = _empty(dev, plan[1])
+    rc = _cuda.lib().balm_hess_v3_pieces(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        pieces.data_ptr(), JDpart.data_ptr(), Wp, Gp, bw, _PIECES[split],
+        dev.index, _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "hess_v3 pieces")
+    return pieces, JDpart
+
+
+def _hess_v3_pairs(pieces, JDpart, Wp, Gp, bw, split, plan):
+    """B5 stage 2 and its sum pass on CUDA tensors: -> (raw pair blocks,
+    J, D) as hess_pairs_v3_plain."""
+    nB = -(-Wp // bw)
+    dev = pieces.device
+    nsplit = plan[3]
+    Hpart = _empty(dev, nsplit, plan[2])
+    Hblk = _empty(dev, len(_pairs(nB)) * 6 * bw, 6 * bw)
+    J, D = _empty(dev, nB * bw, 6), _empty(dev, nB * bw, 36)
+    rc = _cuda.lib().balm_hess_v3_pairs(
+        pieces.data_ptr(), JDpart.data_ptr(), Hpart.data_ptr(),
+        Hblk.data_ptr(), J.data_ptr(), D.data_ptr(), Wp, Gp, bw,
+        _PIECES[split], nsplit, dev.index, _cuda.stream_of(pieces))
+    _cuda.check_launch(rc, "hess_v3 pairs")
+    return Hblk, J, D
+
+
+def hess_pairs_v3(pose, mom, cen, aux, bw, *, split="bf16x3"):
     """B5 wrapper, the v3 kernel (`_hess_kernel_v3`): the raw pair blocks,
-    J and D of hess_pairs_v3_plain.  CUDA tensors: the `hess_v3` kernel,
-    each pair block split over blocks of threads that walk every plane;
-    CPU tensors: hess_pairs_v3_plain.  The exact fp32 product."""
+    J and D of hess_pairs_v3_plain with the product of `split`.  CUDA
+    tensors: the `hess_v3` kernel in two stages, the split's bf16 pieces
+    of the rank rows built once into device memory (_hess_v3_pieces), then
+    the lower-triangle pair blocks from them on the tensor cores and a sum
+    of the plane splits (_hess_v3_pairs); CPU tensors:
+    hess_pairs_v3_plain."""
+    _split(split)
     if not 1 <= bw <= mom.shape[0]:
         raise ValueError(f"bw must lie in [1, Wp={mom.shape[0]}], got {bw}")
     if _on_cpu(pose, mom, cen, aux):
-        return hess_pairs_v3_plain(pose, mom, cen, aux, bw)
+        return hess_pairs_v3_plain(pose, mom, cen, aux, bw, split=split)
     Wp, Gp = _hess_checked(pose, mom, cen, aux)
-    nB = -(-Wp // bw)
-    dev = mom.device
-    Hblk = _empty(dev, len(_pairs(nB)) * 6 * bw, 6 * bw)
-    J, D = _empty(dev, nB * bw, 6), _empty(dev, nB * bw, 36)
-    rc = _cuda.lib().balm_hess_v3(
-        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
-        Hblk.data_ptr(), J.data_ptr(), D.data_ptr(), Wp, Gp, bw, dev.index,
-        _cuda.stream_of(mom))
-    _cuda.check_launch(rc, "hess_v3")
+    plan = _hess_v3_plan(Wp, Gp, bw, split, mom.device)
+    pieces, JDpart = _hess_v3_pieces(pose, mom, cen, aux, bw, split, plan)
+    out = _hess_v3_pairs(pieces, JDpart, Wp, Gp, bw, split, plan)
     hess_pairs_v3.launches += 1
-    return Hblk, J, D
+    return out
 
 
 hess_pairs_v3.launches = 0
@@ -562,10 +626,10 @@ def hess_packed_v3(pose, mom, cen, aux, *, split="bf16x3", bw=None):
     Pose blocks of Bw = min(bw or BW_HESS3, Wp) scans; the last block is
     ragged when Bw does not divide Wp (zero rows, cropped here).  The JAX
     wrapper's `bg` is a TPU plane tile and has no counterpart: the CUDA
-    kernel picks its own plane chunk.  `split` 'f32' and 'bf16x3' both run
-    the exact fp32 product, as its plain version does (the JAX kernel's
-    bf16x3 is not ported yet: ROADMAP queue C, C4).  The mirror of the
-    lower-triangle pair blocks into the full matrix is torch glue, the
+    kernel picks its own plane chunk.  `split` is the product's, as the
+    JAX kernel's: 'bf16x3' (hi/lo pieces, three products) or 'f32'
+    (exact), for the kernel and its plain version alike.  The mirror of
+    the lower-triangle pair blocks into the full matrix is torch glue, the
     same for the kernel and its plain version (pallas_evaluate.py:
     770-782).
     """
@@ -574,7 +638,7 @@ def hess_packed_v3(pose, mom, cen, aux, *, split="bf16x3", bw=None):
     Bw = min(bw or BW_HESS3, Wp)
     nB = -(-Wp // Bw)
     WpB = nB * Bw
-    Hblk, J, D = hess_pairs_v3(pose, mom, cen, aux, Bw)
+    Hblk, J, D = hess_pairs_v3(pose, mom, cen, aux, Bw, split=split)
     pairs = _pairs(nB)
     Hp = Hblk.view(len(pairs), 6, Bw, 6, Bw)
     Hb = Hblk.new_empty(nB, nB, 6, Bw, 6, Bw)

@@ -9,10 +9,12 @@ as it starts and ends; any failure raises and the script exits non-zero:
 
   1. device  - the card's name and power limit (nvidia-smi)
   2. build   - one nvcc process per source (csrc/packed_kernels.cu,
-               csrc/hess_kernels.cu, csrc/moments_kernels.cu; sm_90a),
-               all started together, then one link; ptxas's registers and
-               spills per kernel, and the tensor-core instructions of the
-               fused-Hessian kernels in the SASS (B4/B6 must hold HGMMA)
+               csrc/hess_kernels.cu, csrc/hess_v3_kernels.cu,
+               csrc/moments_kernels.cu; sm_90a), all started together,
+               then one link; ptxas's registers and spills per kernel, and
+               the tensor-core instructions of the fused-Hessian kernels in
+               the SASS (B4/B6 and B5's product kernel must hold HGMMA,
+               B5's product kernel no FFMA)
   3. scene   - a synthetic scene from --seed: 256 scans along a smooth
                trajectory through a field of planar patches, ~30 k points
                each, poses perturbed with the virtual protocol's noise
@@ -23,17 +25,20 @@ as it starts and ends; any failure raises and the script exits non-zero:
                (W=24, bw 8 and 16, the last block ragged at 16), and the
                fused-Hessian kernels on random moments at the slice's
                shape (W=256, G=11520), where fp32 accumulation drift
-               would show; B4 `hess_v2` at split 'bf16x3' against the plain
-               bf16x3 product and B6 `hess_v1` (exact) against the exact
-               one, each also launched twice for the same bits, and B4 at
-               split 'f32' bitwise equal to B6 (the same instantiation);
-               on the random moments also B4 and B6 against float64
-               products of the plain rows (TOL_F64); CUDA-event times
-               beside each kernel's bound, its plain version's time and,
-               for the fused-Hessian kernels, the library time of the same
-               product (exact: three fp32 torch.mm on B2's rows; bf16x3:
-               one bf16 torch.mm with fp32 output over the concatenated
-               pieces)
+               would show; B4 `hess_v2` and B5 at both splits against the
+               plain product of the same split and B6 `hess_v1` (exact)
+               against the exact one, each also launched twice for the
+               same bits, and B4 at split 'f32' bitwise equal to B6 (the
+               same instantiation); on the random moments also B4, B5 and
+               B6 against float64 products of the plain rows (TOL_F64);
+               B5 at W=640, G=4096, the width from which the JAX package
+               sends 'pallas2' to it, against its plain version, timed,
+               and evaluate_packed(impl='pallas2') there launching B5;
+               CUDA-event times beside each kernel's bound, its plain
+               version's time and, for the fused-Hessian kernels, the
+               library time of the same product (exact: three fp32
+               torch.mm on B2's rows; bf16x3: one bf16 torch.mm with fp32
+               output over the concatenated pieces), B5 also by stage
   5. small   - optimize_poses on the card against the plain CPU path on a
                small scene
   6. slice   - the main path: optimize_poses(..., backend='packed') on
@@ -46,8 +51,9 @@ as it starts and ends; any failure raises and the script exits non-zero:
   7. slice 2 - the fused-Hessian evaluate at the same size: damping_iter
                with packed_impl 'pallas2' (B4, bf16x3 at the default
                hess_precision='high'), 'pallas2' with hess_precision=
-               'highest' (B4, exact), 'pallas3' (B5), 'pallas' (B6) and
-               'xla', and with chunk_planes=2048, each with every
+               'highest' (B4, exact), 'pallas3' (B5, bf16x3) and with
+               'highest' (B5, exact), 'pallas' (B6) and 'xla', and with
+               chunk_planes=2048, each with every
                launch count set to 0 just before and read just after, held
                against the hybrid solve of phase 6; one evaluate_packed per
                impl against evaluate_packed_jw; ms per LM iteration
@@ -78,10 +84,11 @@ phase 7 for B4-B6, phase 8 (b) for B7), and
 error of every output (for the fused-Hessian kernels also under
 "random_W256_G11520", their errors on the random moments of phase 4;
 for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
-by dtype and residual_moments' time).  B4's `ms`, `plain_ms`, `bound_ms`
-and `library_ms` are those of its default split (bf16x3); `by_split`
-holds both, 'f32' with hess_v1's numbers (one instantiation).  The last
-line is
+by dtype and residual_moments' time).  B4's and B5's `ms`, `plain_ms`,
+`bound_ms` and `library_ms` are those of their default split (bf16x3);
+`by_split` holds both, B4's 'f32' with hess_v1's numbers (one
+instantiation), B5's with the times of its two stages, and B5's
+`wp640` its numbers at W=640, G=4096.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -119,11 +126,11 @@ TOL = {"csum": 1e-4, "rows": 1e-5, "J": 1e-4, "D": 1e-4}
 # the fused-Hessian kernels against their plain versions (rows + fp32
 # torch.mm): Htilde at the bar of tests/test_pallas_evaluate.py:158-159 —
 # each output entry is a sum over 3 Gp terms, taken by the kernel in
-# plane-chunk order (on the tensor cores for B4 and B6, with FMA for B5)
-# and by cuBLAS in its own blocking; B4's bf16x3 split is held against
-# the plain bf16x3 product
+# plane-chunk order on the tensor cores and by cuBLAS in its own
+# blocking; the bf16x3 split of B4 and B5 is held against the plain
+# bf16x3 product
 TOL_HESS = {"H": 1e-5, "J": 1e-4, "D": 1e-4}
-# B4 and B6 against float64 products of the plain rows on the random
+# B4, B5 and B6 against float64 products of the plain rows on the random
 # W=256, G=11520 moments, relative to max|H64|: the exact split against
 # the exact product, the bf16x3 split against the f64 sum of its own three
 # piece products.  Each reads ~5e-7 (fp32 accumulation); a swapped split
@@ -148,6 +155,8 @@ SLICE2 = (("pallas2", dict(packed_impl="pallas2"), "hess_v2"),
           ("pallas2_highest", dict(packed_impl="pallas2",
                                    hess_precision="highest"), "hess_v2"),
           ("pallas3", dict(packed_impl="pallas3"), "hess_v3"),
+          ("pallas3_highest", dict(packed_impl="pallas3",
+                                   hess_precision="highest"), "hess_v3"),
           ("pallas", dict(packed_impl="pallas"), "hess_v1"),
           ("xla", dict(packed_impl="xla"), "rows"),
           ("chunk2048", dict(chunk_planes=2048), "rows"))
@@ -384,12 +393,16 @@ def f64_products(rows):
     return H64, H64x3
 
 
+# B5's record names by split
+V3 = {"bf16x3": "hess_v3", "f32": "hess_v3_f32"}
+
+
 def check_hess(pose, pk, aux, tag, bws=(None,), f64=False):
-    """B6, B4 (both splits) and B5 against their plain versions on the
-    same CUDA inputs, B6 and B4 launched twice for the same bits, and B4
-    at split 'f32' bitwise equal to B6 (one instantiation).  With `f64`,
-    B6 and B4 also against float64 products of the plain rows within
-    TOL_F64.  Returns records keyed by kernel name."""
+    """B6, B4 and B5 (both splits each) against their plain versions on
+    the same CUDA inputs, each launched twice for the same bits, and B4 at
+    split 'f32' bitwise equal to B6 (one instantiation).  With `f64`, B6,
+    B4 and B5 (at its default Bw) also against float64 products of the
+    plain rows within TOL_F64.  Returns records keyed by kernel name."""
     import torch
 
     from balm_tpu_torch.ops import packed_evaluate as pe
@@ -417,29 +430,40 @@ def check_hess(pose, pk, aux, tag, bws=(None,), f64=False):
                              f"hess_v1")
     log(f"  [{tag}] hess_v2 split=f32: the same bits as hess_v1")
     del v2_f32
+    for bw in bws:
+        Bw = min(bw or pe.BW_HESS3, Wp)
+        for split, name in V3.items():
+            what = f"hess_v3 bw={Bw} split={split}"
+            v3 = same_bits(f"[{tag}] {what}", lambda: pe.hess_pairs_v3(
+                *args, Bw, split=split))
+            out[name] = rec(what, v3, pe.hess_pairs_v3_plain(*args, Bw,
+                                                             split=split))
+            del v3
     if f64:
         H64, H64x3 = f64_products(pe.rows_packed_plain(*args)[0])
         scale = float(H64.abs().max())
         plain = {sp: pe.hess_packed_plain(*args, split=sp)[0]
                  for sp in ("f32", "bf16x3")}
+        # B5's full matrix is (w, j)-major
+        wj = lambda H: H.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(
+            6 * Wp, 6 * Wp)
+        v3 = {sp: pe.hess_packed_v3(*args, split=sp)[0]
+              for sp in ("f32", "bf16x3")}
         for what, H, ref, check in (
                 ("plain exact vs H64", plain["f32"], H64, False),
                 ("plain bf16x3 vs H64x3", plain["bf16x3"], H64x3, False),
                 ("hess_v1/hess_v2 exact vs H64", got["f32"][0], H64, True),
                 ("hess_v2 bf16x3 vs H64x3", got["bf16x3"][0], H64x3, True),
-                ("hess_v2 bf16x3 vs H64", got["bf16x3"][0], H64, False)):
+                ("hess_v2 bf16x3 vs H64", got["bf16x3"][0], H64, False),
+                ("hess_v3 exact vs H64", v3["f32"], wj(H64), True),
+                ("hess_v3 bf16x3 vs H64x3", v3["bf16x3"], wj(H64x3), True),
+                ("hess_v3 bf16x3 vs H64", v3["bf16x3"], wj(H64), False)):
             rel = float((H.double() - ref).abs().max()) / scale
             log(f"  [{tag}] {what}: max|H - ref| / max|H64| = {rel:.3e}"
                 + (f" (tol {TOL_F64:.1e})" if check else ""))
             if check and not (np.isfinite(rel) and rel <= TOL_F64):
                 raise AssertionError(f"[{tag}] {what}: {rel} > {TOL_F64}")
-        del H64, H64x3, plain
-    for bw in bws:
-        Bw = min(bw or pe.BW_HESS3, Wp)
-        got = pe.hess_pairs_v3(*args, Bw)
-        ref = pe.hess_pairs_v3_plain(*args, Bw)
-        torch.cuda.synchronize()
-        out["hess_v3"] = rec(f"hess_v3 bw={Bw}", got, ref)
+        del H64, H64x3, plain, v3
     return out
 
 
@@ -487,7 +511,7 @@ def bounds(Wp, Gp):
     bf16 peak.  For those also `simt_bound_ms`, the bound with the whole
     product at the fp32 peak (the earlier SIMT kernels' yardstick), for
     the log only.  B4 at split 'f32' is hess_v1's instantiation and
-    bound."""
+    bound; B5 by split: `hess_v3` (bf16x3) and `hess_v3_f32`."""
     wg = Wp * Gp
     csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
     rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
@@ -515,7 +539,9 @@ def bounds(Wp, Gp):
             ("rows", rows_bytes, rows_pass, 0, 0),
             ("hess_v1", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
             ("hess_v2", h_bytes, rows_pass, full, SPLIT_PASSES["bf16x3"]),
-            ("hess_v3", v3_bytes, rows_pass, pairs, SPLIT_PASSES["f32"])):
+            ("hess_v3", v3_bytes, rows_pass, pairs, SPLIT_PASSES["bf16x3"]),
+            ("hess_v3_f32", v3_bytes, rows_pass, pairs,
+             SPLIT_PASSES["f32"])):
         tb = nbytes / PEAK_BYTES_PER_S * 1e3
         tf = flops / PEAK_F32_FLOPS * 1e3
         tt = passes * prod / PEAK_BF16_FLOPS * 1e3
@@ -529,11 +555,66 @@ def bounds(Wp, Gp):
     return res
 
 
+def check_b5_dispatch(seed, dev, card, counters):
+    """B5 at W=640, G=4096, where the JAX package sends impl='pallas2' to
+    its v3 kernel (Wp >= 608): against its plain version at both splits,
+    CUDA-event times beside the bound, and one evaluate_packed(impl=
+    'pallas2') that must launch B5 and not B4.  Returns the records."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    W, G = 640, 4096
+    tag = f"random W={W} G={G}"
+    pose, pk = ragged_problem(seed, W=W, G=G, device=dev)
+    csum = pe.csum_packed(pose, pk.mom, pk.cen, pk.cfix)
+    _, aux = pe._aux_from_csum(csum, pk, 1e-9)
+    args = (pose, pk.mom, pk.cen, aux)
+    Bw = min(pe.BW_HESS3, W)
+    bnd = bounds(W, G)
+    out = {}
+    for split, name in V3.items():
+        got = pe.hess_pairs_v3(*args, Bw, split=split)
+        ref = pe.hess_pairs_v3_plain(*args, Bw, split=split)
+        torch.cuda.synchronize()
+        err = {o: compare(f"[{tag}] hess_v3 split={split}/{o}", a, b,
+                          TOL_HESS[o])
+               for o, a, b in zip(("H", "J", "D"), got, ref)}
+        del got, ref
+        ms = time_ms(lambda: pe.hess_pairs_v3(*args, Bw, split=split),
+                     iters=10)
+        bb = bnd[name]
+        log(f"  hess_v3 split={split}: kernel {ms:.4f} ms, bound "
+            f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}), "
+            f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={W} Gp={G} "
+            f"on {card}")
+        out[split] = {"ms": ms, "bound_ms": bb["bound_ms"],
+                      "bound_by": bb["bound_by"],
+                      "max_abs_err": err["H"]["abs"], "err_by_output": err}
+    if not pe.pallas2_to_pallas3(pk.wp):
+        raise AssertionError(f"Wp={pk.wp} is below the dispatch width")
+    for c in counters.values():
+        c.launches = 0
+    res, J, H = pe.evaluate_packed(pose[:, :9].reshape(W, 3, 3),
+                                   pose[:, 9:12], pk, impl="pallas2")
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    log(f"  [{tag}] evaluate_packed(impl='pallas2') launches {got}")
+    if not (got["hess_v3"] == 1 and got["hess_v2"] == 0
+            and all(bool(torch.isfinite(t).all()) for t in (res, J, H))):
+        raise AssertionError(f"[{tag}] evaluate_packed(impl='pallas2') "
+                             f"did not run B5: launches {got}")
+    out["evaluate_pallas2_launches"] = got
+    return out
+
+
 def sass_counts():
     """Print the tensor-core (HGMMA, HMMA) and fp32 FMA instructions of
     each fused-Hessian kernel in the built library (cuobjdump -sass, which
-    ships with nvcc); raise unless both instantiations of B4/B6's kernel,
-    hess_tri_kernel<2> (bf16x3) and <3> (exact), hold HGMMA."""
+    ships with nvcc); raise unless both instantiations (<2> bf16x3, <3>
+    exact) of B4/B6's hess_tri_kernel and of B5's product kernel
+    hess_v3_pairs_kernel hold HGMMA, and B5's product kernel no FFMA (its
+    only fp32 arithmetic is the partials' adds)."""
     from balm_tpu_torch.ops import _cuda
 
     tool = pathlib.Path(_cuda.nvcc_path()).with_name("cuobjdump")
@@ -556,11 +637,15 @@ def sass_counts():
                     counts[fn][ins] += 1
     for fn, c in counts.items():
         log(f"  sass: {fn}: {c}")
-    for pieces in (2, 3):
-        inst = f"hess_tri_kernelILi{pieces}E"
-        if not any(inst in fn and c["HGMMA"] > 0
-                   for fn, c in counts.items()):
-            raise AssertionError(f"no HGMMA in hess_tri_kernel<{pieces}>")
+    for kernel in ("hess_tri_kernel", "hess_v3_pairs_kernel"):
+        for pieces in (2, 3):
+            found = [c for fn, c in counts.items()
+                     if f"{len(kernel)}{kernel}ILi{pieces}E" in fn]
+            if not any(c["HGMMA"] > 0 for c in found):
+                raise AssertionError(f"no HGMMA in {kernel}<{pieces}>")
+            if kernel == "hess_v3_pairs_kernel" and any(
+                    c["FFMA"] for c in found):
+                raise AssertionError(f"FFMA in {kernel}<{pieces}>")
 
 
 # --------------------------------------------------------------------------
@@ -884,6 +969,7 @@ def main(argv=None) -> int:
     counters = {"csum": pe.csum_packed, "rows": pe.rows_packed,
                 "hess_v1": pe.hess_packed, "hess_v2": pe.hess_packed_v2,
                 "hess_v3": pe.hess_pairs_v3}
+    rec_640 = check_b5_dispatch(args.seed + 3, dev, card, counters)
     n_launch0 = {k: c.launches for k, c in counters.items()}
     Bw = min(pe.BW_HESS3, pk.wp)
     # B4 and B6 share one plain version (B4's bf16x3 split its own).  The
@@ -904,6 +990,21 @@ def main(argv=None) -> int:
         f"K={a3.shape[1]}, its operands' split and concatenation "
         f"{x3_prep_ms:.4f} ms; exact: three fp32 torch.mm {lib_ms:.4f} ms")
     del rows_b, a3, b3
+    # B5's two stages apart, on their own: the pieces, then the pair
+    # product and its sum pass from them
+    v3_stage = {}
+    for split, name in V3.items():
+        plan = pe._hess_v3_plan(pk.wp, pk.gp, Bw, split, dev)
+        pcs = pe._hess_v3_pieces(*hargs, Bw, split, plan)
+        v3_stage[name] = (
+            time_ms(lambda: pe._hess_v3_pieces(*hargs, Bw, split, plan),
+                    iters=10),
+            time_ms(lambda: pe._hess_v3_pairs(*pcs, pk.wp, pk.gp, Bw, split,
+                                              plan), iters=10))
+        log(f"  hess_v3 split={split}: stage 1 (pieces) "
+            f"{v3_stage[name][0]:.4f} ms, stage 2 (pairs + sum) "
+            f"{v3_stage[name][1]:.4f} ms on {card}")
+        del pcs
     timing = {
         "csum": (time_ms(lambda: pe.csum_packed(pose, pk.mom, pk.cen,
                                                 pk.cfix)),
@@ -916,9 +1017,14 @@ def main(argv=None) -> int:
                     plain_hess, lib_ms),
         "hess_v2": (time_ms(lambda: pe.hess_packed_v2(*hargs), iters=10),
                     plain_x3, lib_x3_ms),
-        "hess_v3": (time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw), iters=5),
+        "hess_v3": (time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw), iters=10),
                     time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw),
-                            iters=3, warmup=1), lib_ms),
+                            iters=3, warmup=1), lib_x3_ms),
+        "hess_v3_f32": (
+            time_ms(lambda: pe.hess_pairs_v3(*hargs, Bw, split="f32"),
+                    iters=10),
+            time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw, split="f32"),
+                    iters=3, warmup=1), lib_ms),
     }
     if any(c.launches <= n_launch0[k] for k, c in counters.items()):
         raise AssertionError("the timed calls did not launch the kernels")
@@ -1070,6 +1176,7 @@ def main(argv=None) -> int:
     kernels = []
     src1 = "balm_tpu_torch/csrc/packed_kernels.cu"
     src2 = "balm_tpu_torch/csrc/hess_kernels.cu"
+    src3 = "balm_tpu_torch/csrc/hess_v3_kernels.cu"
     for name, src, replaces, main_key, path_launches in (
             ("csum", src1, "balm_tpu/ops/pallas_evaluate.py:115", "csum",
              launches),
@@ -1077,7 +1184,7 @@ def main(argv=None) -> int:
              launches),
             ("hess_v2", src2, "balm_tpu/ops/pallas_evaluate.py:491", "H",
              slice2["pallas2"]),
-            ("hess_v3", src2, "balm_tpu/ops/pallas_evaluate.py:604", "H",
+            ("hess_v3", src3, "balm_tpu/ops/pallas_evaluate.py:604", "H",
              slice2["pallas3"]),
             ("hess_v1", src2, "balm_tpu/ops/pallas_evaluate.py:284", "H",
              slice2["pallas"])):
@@ -1098,6 +1205,20 @@ def main(argv=None) -> int:
                 for sp, k, path in (("bf16x3", "hess_v2", "pallas2"),
                                     ("f32", "hess_v1",
                                      "pallas2_highest"))}
+        if name == "hess_v3":
+            rec["by_split"] = {
+                sp: {"ms": timing[k][0], "plain_ms": timing[k][1],
+                     "library_ms": timing[k][2],
+                     "bound_ms": bnd[k]["bound_ms"],
+                     "stage1_ms": v3_stage[k][0],
+                     "stage2_ms": v3_stage[k][1],
+                     "max_abs_err": recs[k]["H"]["abs"],
+                     "launches": slice2[path][name]}
+                for sp, k, path in (("bf16x3", "hess_v3", "pallas3"),
+                                    ("f32", "hess_v3_f32",
+                                     "pallas3_highest"))}
+            rec["err_by_output_f32"] = recs["hess_v3_f32"]
+            rec["wp640"] = rec_640
         kernels.append(rec)
     kernels.append(rec_b7)
     log(f"  total {time.perf_counter() - t_all:.1f} s")

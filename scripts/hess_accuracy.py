@@ -9,12 +9,12 @@ builds the plain rank rows on the card, forms Htilde = sum_k M_k M_k^T
 in float64 from them, and prints max|H - H64| / max|H64| for the plain
 version (rows + fp32 torch.mm, and its bf16x3 form), the hybrid path
 (B2 + fp32 torch.mm) and the fused kernels B6 `hess_v1` (the exact bf16
-split), B4 `hess_v2` at split 'bf16x3' (its default, the JAX kernel's
-product) and 'f32' (exact), and B5 `hess_v3` (mirrored to the full
-matrix and compared in its (w, j)-major order).  The bf16x3 products
-are also held against H64x3, the f64 sum of the bf16x3 split's own three
-piece products (chip_smoke.f64_products), which leaves only their fp32
-accumulation error.  The card's name and power limit come first.
+split), B4 `hess_v2` and B5 `hess_v3` each at split 'bf16x3' (their
+default, the JAX kernel's product) and 'f32' (exact; B5 mirrored to the
+full matrix and compared in its (w, j)-major order).  The bf16x3
+products are also held against H64x3, the f64 sum of the bf16x3 split's
+own three piece products (chip_smoke.f64_products), which leaves only
+their fp32 accumulation error.  The card's name and power limit come first.
 Needs one CUDA card and nvcc.
 """
 
@@ -53,7 +53,8 @@ def main(argv=None) -> int:
     Wp = pk.wp
     H64, H64x3 = cs.f64_products(pe.rows_packed_plain(*hargs)[0])
     scale = float(H64.abs().max())
-    wj = H64.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(6 * Wp, 6 * Wp)
+    wj = lambda H: H.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(
+        6 * Wp, 6 * Wp)
     x3 = dict(split="bf16x3")
     f32 = dict(split="f32")
     for name, fn, ref in (
@@ -63,11 +64,16 @@ def main(argv=None) -> int:
             ("hess_v1", pe.hess_packed, H64),
             ("hess_v2 bf16x3", lambda *a: pe.hess_packed_v2(*a, **x3), H64),
             ("hess_v2 f32", lambda *a: pe.hess_packed_v2(*a, **f32), H64),
-            ("hess_v3", pe.hess_packed_v3, wj),
+            ("hess_v3 bf16x3", lambda *a: pe.hess_packed_v3(*a, **x3),
+             wj(H64)),
+            ("hess_v3 f32", lambda *a: pe.hess_packed_v3(*a, **f32),
+             wj(H64)),
             ("plain bf16x3 vs H64x3",
              lambda *a: pe.hess_packed_plain(*a, **x3), H64x3),
             ("hess_v2 bf16x3 vs H64x3",
-             lambda *a: pe.hess_packed_v2(*a, **x3), H64x3)):
+             lambda *a: pe.hess_packed_v2(*a, **x3), H64x3),
+            ("hess_v3 bf16x3 vs H64x3",
+             lambda *a: pe.hess_packed_v3(*a, **x3), wj(H64x3))):
         H = fn(*hargs)[0]
         err = float((H.double() - ref).abs().max()) / scale
         print(f"{name}: max|H - ref| / max|H64| = {err:.3e} at Wp={Wp} "

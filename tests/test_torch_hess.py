@@ -11,10 +11,9 @@ GPU by chip_smoke.py.
 
 Tolerances (f32 throughout; the two sides sum in different orders):
   * Htilde: 1e-5 of max|.| (the bar of tests/test_pallas_evaluate.py:
-    158-159) against split='f32', and for B4 against the default bf16x3
-    split too, which both sides compute as three products of the same
-    bf16 pieces; 1e-4 for B5 against bf16x3, whose product the port
-    keeps exact (ROADMAP queue C, C4)
+    158-159) against split='f32', and for B4 and B5 against the default
+    bf16x3 split too, which both sides compute as three products of the
+    same bf16 pieces
   * J and D: 1e-4 of max|.|
   * evaluate_packed: res 1e-5 relative, J and H 1e-4 of max|.| (the bars
     of tests/test_pallas_evaluate.py:124-178)
@@ -81,8 +80,8 @@ def test_hess_v2_plain_matches_jax(split, h_tol):
 
 @pytest.mark.parametrize("bw,split,h_tol", [(8, "f32", 1e-5),
                                             (16, "f32", 1e-5),
-                                            (8, "bf16x3", 1e-4),
-                                            (16, "bf16x3", 1e-4)])
+                                            (8, "bf16x3", 1e-5),
+                                            (16, "bf16x3", 1e-5)])
 def test_hess_v3_plain_matches_jax(bw, split, h_tol):
     """bw=8 tiles Wp=24 exactly (3 blocks, 6 pairs); bw=16 leaves a ragged
     last block (WpB=32 > Wp=24)."""
@@ -91,9 +90,9 @@ def test_hess_v3_plain_matches_jax(bw, split, h_tol):
     _check_hjd(out, jpe.hess_packed_v3(*j, interpret=True, split=split,
                                        bw=bw, bg=128), h_tol)
     # the raw pair blocks hold the (j, w)-major lower-triangle blocks of
-    # the full product, the padding scans zero
-    Hblk, Jb, Db = tpe.hess_pairs_v3(*t, bw)
-    Hjw = tpe.hess_packed_plain(*t)[0].view(6, 24, 6, 24)
+    # the full product of the same split, the padding scans zero
+    Hblk, Jb, Db = tpe.hess_pairs_v3(*t, bw, split=split)
+    Hjw = tpe.hess_packed_plain(*t, split=split)[0].view(6, 24, 6, 24)
     nB = -(-24 // bw)
     full = torch.nn.functional.pad(Hjw, (0, nB * bw - 24, 0, 0,
                                          0, nB * bw - 24))
@@ -169,6 +168,23 @@ def test_split_follows_hess_precision_as_in_jax(impl, monkeypatch):
     assert seen["port"] == seen["jax"] == ["f32", "f32", "bf16x3"]
     assert [tpe.split_of(h) for h in (None, "highest", "high")] == \
         ["f32", "f32", "bf16x3"]
+
+
+def test_evaluate_pallas3_bf16x3_matches_jax():
+    """At hess_precision 'high' (JAX: Precision.HIGH) evaluate_packed
+    runs B5 with the bf16x3 split on both sides: H within 1e-5 of its
+    max, as hess_packed_v3's own bar."""
+    R32, p32, f32, packed, _ = _jax_inputs(MULTI)
+    res0, J0, H0 = jpe.evaluate_packed(R32, p32, packed, impl="pallas3",
+                                       interpret=True,
+                                       hess_precision=lax.Precision.HIGH)
+    pkt = tpk.pack_factors(
+        tF.factors_from_numpy([np.asarray(x) for x in f32]))
+    res1, J1, H1 = tpe.evaluate_packed(_t(R32), _t(p32), pkt,
+                                       impl="pallas3", hess_precision="high")
+    assert abs(float(res1) - float(res0)) < 1e-5 * abs(float(res0))
+    assert _relmax(J1, J0) < 1e-4
+    assert _relmax(H1, H0) < 1e-5
 
 
 def test_hess_xla_matches_jax():
@@ -288,8 +304,11 @@ def test_hess_wrappers_refuse_bad_inputs():
             fn(pose, mom.to("meta"), cen, aux)
     with pytest.raises(ValueError, match="bw must lie"):
         tpe.hess_packed_v3(pose, mom, cen, aux, bw=-1)
-    with pytest.raises(ValueError, match="unknown split"):
-        tpe.hess_packed_v2(pose, mom, cen, aux, split="bf16")
+    for fn in (tpe.hess_packed_v2, tpe.hess_packed_v3,
+               lambda *a, **k: tpe.hess_pairs_v3(*a, 8, **k),
+               lambda *a, **k: tpe.hess_pairs_v3_plain(*a, 8, **k)):
+        with pytest.raises(ValueError, match="unknown split"):
+            fn(pose, mom, cen, aux, split="bf16")
     with pytest.raises(ValueError, match="unknown impl"):
         tpe.evaluate_packed(torch.zeros(1, 3, 3), torch.zeros(1, 3),
                             tpk.PackedFactors(mom, cen, cen[:1], mom[0]),
