@@ -1,0 +1,79 @@
+"""Checkpoint and resume of long BA runs; the reference's pose CSV.
+
+Counterpart: balm_tpu/utils/checkpoint.py (save :20, load :31,
+pack_lm_state :43, unpack_lm_state :49, write_pose_csv :96,
+read_pose_csv :113).  One .npz holds the trajectory, optionally the
+factor batch, and any extra arrays, such as a solver state from
+solver/lm.damping_iter_resumable.  The file format is the JAX
+package's, so a checkpoint written by either package loads in the
+other.  Tensors are copied to the host; `load` returns numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..io.poses import read_pose_csv  # noqa: F401  (re-exported)
+from ..ops.factors import PlaneFactors
+
+_FIELDS = ("C", "Cfix", "coe", "centers", "body_centers")
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def save(path, R, p, factors: PlaneFactors = None, **extra):
+    """Save the trajectory (+ an optional factor batch and extra arrays)."""
+    data = {"R": _np(R), "p": _np(p)}
+    if factors is not None:
+        for name in _FIELDS:
+            data[f"factors_{name}"] = _np(getattr(factors, name))
+    for k, v in extra.items():
+        data[k] = _np(v)
+    np.savez_compressed(path, **data)
+
+
+def load(path):
+    """-> dict with R, p, an optional 'factors' (PlaneFactors of numpy
+    arrays) and any extra arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        out = {k: z[k] for k in z.files if not k.startswith("factors_")}
+        if "factors_C" in z.files:
+            out["factors"] = PlaneFactors(*[z[f"factors_{name}"]
+                                            for name in _FIELDS])
+    return out
+
+
+def pack_lm_state(state: dict) -> dict:
+    """A damping_iter_resumable state -> npz-safe `lm_`-prefixed arrays
+    (pass as **extra to `save`)."""
+    return {f"lm_{k}": _np(v) for k, v in state.items()}
+
+
+def unpack_lm_state(data: dict) -> dict | None:
+    """Inverse of pack_lm_state over a dict loaded by `load`; None when
+    the checkpoint holds no solver state."""
+    out = {k[3:]: np.asarray(v) for k, v in data.items()
+           if k.startswith("lm_")}
+    return out or None
+
+
+def write_pose_csv(path, R, p, t=None):
+    """Write the reference's 4-lines-per-pose CSV trajectory
+    (datas/benchmark_realworld/alidarPose.csv; see io/poses.py)."""
+    R = _np(R)
+    p = _np(p)
+    W = len(R)
+    t = np.zeros(W) if t is None else _np(t)
+    with open(path, "w") as fh:
+        for i in range(W):
+            M = np.eye(4)
+            M[:3, :3] = R[i]
+            M[:3, 3] = p[i]
+            M[3, 3] = t[i]
+            for row in M:
+                fh.write(",".join(f"{x:.9f}" for x in row) + ",\n")

@@ -1,7 +1,8 @@
 """Adaptive voxelization: scans -> plane factor tensors (host, numpy).
 
 Counterpart: balm_tpu/voxel/grid.py — voxelize (:87), _plane_test (:75),
-_assemble (:298) and _moment_bincount (:52), with the native (C++,
+_assemble (:298), _moment_bincount (:52), down_sample_stride (:354) and
+down_sample_voxel (:360), with the native (C++,
 balm_tpu_torch/native) and numpy backends.  Host code: association runs
 once per BA problem in f64 numpy; the per-iteration hot path is on the
 device.  Re-design of the reference's pointer octree (cut_voxel
@@ -340,3 +341,29 @@ def _assemble(C_all, centers_all, layers_all, decisions_all, point_leaf,
         leaf_layer=layers_all,
         leaf_decision=decisions_all,
     )
+
+
+def down_sample_stride(points: np.ndarray, stride: int) -> np.ndarray:
+    """Keep every stride-th point (reference down_sampling_serie,
+    tools.hpp:244-254)."""
+    return points[:: max(int(stride), 1)]
+
+
+def down_sample_voxel(points: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Voxel-grid centroid downsampling (reference down_sampling_voxel,
+    tools.hpp:203-242); the centroids come out in cell-key order."""
+    if voxel_size < 1e-3:
+        return points
+    coords = np.floor(points / voxel_size).astype(np.int64)
+    key = (
+        ((coords[:, 0] + _OFFSET) << 42)
+        | ((coords[:, 1] + _OFFSET) << 21)
+        | (coords[:, 2] + _OFFSET)
+    )
+    uniq, inv = np.unique(key, return_inverse=True)
+    n = len(uniq)
+    out = np.zeros((n, 3), points.dtype)
+    cnt = np.bincount(inv, minlength=n)
+    for a in range(3):
+        out[:, a] = np.bincount(inv, points[:, a], minlength=n) / cnt
+    return out

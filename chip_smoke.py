@@ -74,12 +74,38 @@ as it starts and ends; any failure raises and the script exits non-zero:
                card against device='cpu', in f64 and f32 centered;
                (g) a hybrid solve under the caller's
                fp32_precision='tf32' against phase 6's
+  9. slice 6 - benchmark_realworld on the card: (1) the scene written as
+               the reference dataset (binary full{i}.pcd scans,
+               alidarPose.csv; pose 0 exact, as realworld.load re-anchors
+               to it); (2) the main path, realworld.run(RealworldConfig(
+               data_dir, dtype='float32', centered=True)), twice, with the
+               csum and rows launch counts set to 0 just before the first
+               and read just after: 'auto' must take the device
+               association, the residual fall, the rotation RSME against
+               the re-anchored ground truth improve, the two runs give the
+               same bits; load, association (per attempt) and solve
+               seconds; (3) the same run with the host association:
+               planes within max(2, 0.1%), residuals within 1e-3 / 5e-3;
+               (4) voxelize_device twice, the same bits, the packed Gp
+               with and without its zero padding rows, its wall and
+               per-attempt seconds and the per-point pass alone (CUDA
+               events); (5) voxelize_device in float64
+               on the first EVAL64_SCANS scans against the numpy host
+               voxelizer: the same planes, leaf moments within 1e-9;
+               (6) at 64 scans, export_dir (convergence.txt, the refined
+               poses read back, the plane cloud), merge_planes and the
+               coarse-to-fine stages; (7) on phase 6's factors,
+               damping_iter_timed and damping_iter_resumable (chunks of 3
+               through checkpoint files) against phase 6's solve bit for
+               bit, and linear_solver='pcg' on the packed path at
+               EVAL64_SCANS scans, card against CPU
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
 kernels' Htilde, B7's f32 Csum on the scene), `launches` counts the
-launches in the run of the kernel's own path (phase 6 for csum and rows,
-phase 7 for B4-B6, phase 8 (b) for B7), and
+launches in the run of the kernel's own path (phase 9's realworld.run for
+csum and rows, with phase 6's optimize_poses count beside it as
+`launches_optimize_poses`; phase 7 for B4-B6, phase 8 (b) for B7), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
 "random_W256_G11520", their errors on the random moments of phase 4;
@@ -880,6 +906,334 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
 
 
 # --------------------------------------------------------------------------
+# phase 9: slice 6
+# --------------------------------------------------------------------------
+
+def write_scene(d, scans, R, p):
+    """The scene as the reference dataset lays it out: binary PCD v0.7
+    scans full{i}.pcd (float32 x y z) and alidarPose.csv, four rows of
+    the 4x4 pose matrix per scan."""
+    for i, s in enumerate(scans):
+        pts = np.ascontiguousarray(s, np.float32)
+        hdr = (f"VERSION 0.7\nFIELDS x y z\nSIZE 4 4 4\nTYPE F F F\n"
+               f"COUNT 1 1 1\nWIDTH {len(pts)}\nHEIGHT 1\n"
+               f"VIEWPOINT 0 0 0 1 0 0 0\nPOINTS {len(pts)}\nDATA binary\n")
+        (d / f"full{i}.pcd").write_bytes(hdr.encode() + pts.tobytes())
+    with open(d / "alidarPose.csv", "w") as fh:
+        for Ri, pi in zip(R, p):
+            M = np.eye(4)
+            M[:3, :3], M[:3, 3] = Ri, pi
+            fh.writelines(",".join(f"{x:.9f}" for x in row) + ",\n"
+                          for row in M)
+
+
+def anchor(R, p):
+    """realworld.load's re-anchoring to pose 0."""
+    return (np.einsum("ba,nbc->nac", R[0], R), (p - p[0]) @ R[0])
+
+
+def check_rel(what, a, b, tol):
+    rel = abs(a - b) / abs(b)
+    log(f"  {what}: {a:.6f} vs {b:.6f}, rel {rel:.3e} (tol {tol:.0e})")
+    if not (np.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"{what} differs: {rel} > {tol}")
+
+
+def same_result(what, a, b):
+    """Raise unless two DeviceVoxelizeResults hold the same bits."""
+    import torch
+
+    if not (int(a.num_planes) == int(b.num_planes)
+            and all(torch.equal(x, y) for x, y in zip(a.factors, b.factors))
+            and torch.equal(a.leaf_layer, b.leaf_layer)
+            and torch.equal(a.leaf_decision, b.leaf_decision)):
+        raise AssertionError(f"{what}: two runs differ")
+    log(f"  {what}: two runs give the same bits "
+        f"({int(a.num_planes)} planes)")
+
+
+def slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
+           counters):
+    """Phase 9: realworld.run on the card from PCD files, and the LM
+    loop's rest.  `f` is the scene's f32 recentered factors on the card,
+    `ref` phase 6's hybrid solve.  Returns the phase's numbers."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.io import poses
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import packed as packed_mod
+    from balm_tpu_torch.pipelines import coarse_to_fine, realworld
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.utils import checkpoint
+    from balm_tpu_torch.voxel import device as vdev
+    from balm_tpu_torch.voxel import grid
+
+    SolverConfig = balm_tpu_torch.SolverConfig
+    t_phase = time.perf_counter()
+    rec = {}
+    # realworld.load re-anchors the trajectory to its pose 0, so pose 0
+    # is written unperturbed: the world frame stays the scene's, its voxel
+    # grid aligned with the patches as in phase 3 (a perturbed pose 0
+    # turns the grid by ~2 degrees against them)
+    Rw, pw = R0.copy(), p0.copy()
+    Rw[0], pw[0] = R_gt[0], p_gt[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp) / "scene"
+        d.mkdir()
+        t0 = time.perf_counter()
+        write_scene(d, scans, Rw, pw)
+        log(f"  (1) wrote {len(scans)} binary PCD scans + alidarPose.csv "
+            f"in {time.perf_counter() - t0:.2f} s")
+        cfg = realworld.RealworldConfig(data_dir=str(d), voxel=vcfg,
+                                        dtype="float32", centered=True)
+
+        log("  (2) the main path: realworld.run(RealworldConfig(data_dir, "
+            "dtype='float32', centered=True)) on the card, twice")
+        runs = []
+        for k in range(2):
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = realworld.run(cfg)
+            wall = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counters.items()}
+            runs.append(o)
+            log(f"  run {k + 1}: {wall:.3f} s wall; assoc "
+                f"{o['assoc_backend']}, attempts {len(o['assoc_attempts_s'])}"
+                f" of {[round(t, 4) for t in o['assoc_attempts_s']]} s; "
+                f"t_load_s {o['t_load_s']:.4f}, t_assoc_s "
+                f"{o['t_assoc_s']:.4f}, t_solve_s {o['t_solve_s']:.4f}; "
+                f"{o['num_planes']} planes, {o['iters']} iters, residual "
+                f"{o['residual_initial']:.6f} -> {o['residual_final']:.6f}; "
+                f"launches {launches} on {card}")
+            if k == 0:
+                rec["launches"] = launches
+            rec[f"run{k + 1}"] = {
+                "wall_s": wall, "assoc_attempts_s": o["assoc_attempts_s"],
+                **{x: o[x] for x in ("t_load_s", "t_assoc_s", "t_solve_s",
+                                     "num_planes", "iters",
+                                     "residual_initial",
+                                     "residual_final")}}
+        o = runs[0]
+        log("  " + lm.format_trace(o["result"]).replace("\n", "\n  "))
+        rs0 = rsme(*anchor(Rw, pw), *anchor(R_gt, p_gt))
+        rs1 = rsme(o["result"].R.cpu().numpy(), o["result"].p.cpu().numpy(),
+                   *anchor(R_gt, p_gt))
+        # with pose 0 exact the gauge adds no error of its own: the
+        # rotation RSME falls; the translation RSME of this 512 m chain
+        # grows as the residual rotation error integrates along it (even
+        # at convergence, scripts/scene_convergence.py), so it is
+        # printed, not checked
+        log(f"  RSME against the re-anchored ground truth: rot "
+            f"{rs0[0]:.6e} -> {rs1[0]:.6e} rad, trans {rs0[1]:.6e} -> "
+            f"{rs1[1]:.6e} m")
+        rec["rsme"] = {"before": rs0, "after": rs1}
+        if not (o["assoc_backend"] == "device" and o["status"] == "ok"
+                and o["residual_final"] < o["residual_initial"]
+                and rs1[0] < rs0[0] and rec["launches"]["csum"] > 0
+                and rec["launches"]["rows"] > 0):
+            raise AssertionError(f"realworld main path failed: "
+                                 f"{rec['run1']}, {rec['launches']}, "
+                                 f"rsme {rs0} -> {rs1}")
+        r1, r2 = (x["result"] for x in runs)
+        if not (np.array_equal(r1.trace_res1, r2.trace_res1, equal_nan=True)
+                and torch.equal(r1.R, r2.R) and torch.equal(r1.p, r2.p)):
+            raise AssertionError("two realworld runs differ")
+        log("  the two runs give the same bits (trace, R, p)")
+
+        log("  (3) the same run with assoc_backend='native' (host)")
+        oh = realworld.run(dataclasses.replace(cfg, assoc_backend="native"))
+        log(f"  host: t_load_s {oh['t_load_s']:.4f}, t_assoc_s "
+            f"{oh['t_assoc_s']:.4f}, t_solve_s {oh['t_solve_s']:.4f}; "
+            f"{oh['num_planes']} planes, {oh['iters']} iters, residual "
+            f"{oh['residual_initial']:.6f} -> {oh['residual_final']:.6f} "
+            f"on {card}")
+        rec["host"] = {x: oh[x] for x in (
+            "t_load_s", "t_assoc_s", "t_solve_s", "num_planes", "iters",
+            "residual_initial", "residual_final")}
+        n_h, n_d = oh["num_planes"], o["num_planes"]
+        log(f"  planes device {n_d} vs host {n_h} "
+            f"(tol max(2, 0.1%) = {max(2, 1e-3 * n_h):.1f})")
+        if abs(n_d - n_h) > max(2, 1e-3 * n_h):
+            raise AssertionError("device and host plane counts differ")
+        check_rel("residual_initial device vs host", o["residual_initial"],
+                  oh["residual_initial"], 1e-3)
+        check_rel("residual_final device vs host", o["residual_final"],
+                  oh["residual_final"], 5e-3)
+
+        log("  (4) voxelize_device twice on the card, and its per-point "
+            "pass alone")
+        Rl, pl, sl = realworld.load(cfg)
+        body, mask = vdev.pad_scans([s.astype(np.float32) for s in sl])
+        pad = (torch.tensor(body, device=dev), torch.tensor(mask, device=dev))
+        Rl32, pl32 = Rl.astype(np.float32), pl.astype(np.float32)
+        run = lambda: vdev.voxelize_device(pad, Rl32, pl32, vcfg,
+                                           want_point_leaf=False)
+        a = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        same_result("voxelize_device", a, b)
+        n_b = int(b.num_planes)
+        log(f"  packed Gp: {packed_mod.pack_factors(b.factors).gp} for the "
+            f"{b.factors.C.shape[0]} padded rows, "
+            f"{packed_mod.pack_factors(vdev.trim_planes(b.factors, n_b)).gp}"
+            f" for the {n_b} planes realworld.run solves over")
+        first = b.attempts[0]
+        core = dict(voxel_size=float(vcfg.voxel_size),
+                    layer_limit=int(vcfg.layer_limit),
+                    eigen_ratio=tuple(vcfg.eigen_ratio),
+                    min_points=int(vcfg.min_points),
+                    min_observers=int(vcfg.min_observers), unit_coe=False,
+                    cell_caps=first["cell_caps"], Gcap=first["Gcap"],
+                    cs_cap=first["cs_cap"])
+        point_ms = time_ms(lambda: vdev._voxelize_core(
+            *pad, torch.tensor(Rl32, device=dev),
+            torch.tensor(pl32, device=dev), _stage=2, **core),
+            iters=5, warmup=1)
+        att = [(round(x["seconds"], 4), x["overflow"], x["Gcap"])
+               for x in b.attempts]
+        log(f"  {wall:.4f} s wall, attempts (s, overflow, Gcap) {att}; "
+            f"per-point pass (transform, sort, moment sums) {point_ms:.3f} "
+            f"ms (CUDA events) at N={body.shape[0] * body.shape[1]} on "
+            f"{card}")
+        rec["assoc"] = {"wall_s": wall, "attempts": att,
+                        "point_pass_ms": point_ms}
+        if int(a.num_planes) != n_d:
+            raise AssertionError(f"{int(a.num_planes)} planes, the main "
+                                 f"run {n_d}")
+        del a, b
+
+        # at the scene's own poses: the CSV's 9 decimals leave R off
+        # orthonormal by ~1e-9, which the device path's rigid-invariance
+        # rotation carries into the moments
+        n = EVAL64_SCANS
+        log(f"  (5) voxelize_device(dtype=float64) on the card against "
+            f"grid.voxelize(backend='numpy'), first {n} scans")
+        d64 = vdev.voxelize_device(scans[:n], R0[:n], p0[:n], vcfg,
+                                   dtype=torch.float64)
+        h = grid.voxelize(scans[:n], R0[:n], p0[:n], vcfg, backend="numpy")
+        g = int(d64.num_planes)
+        log(f"  planes: device f64 {g}, numpy {h.num_planes}")
+        if g != h.num_planes:
+            raise AssertionError("f64 plane counts differ")
+        oa = np.lexsort(np.round(h.leaf_center, 6).T)
+        ob = np.lexsort(np.round(d64.factors.centers[:g].cpu().numpy(),
+                                 6).T)
+        Ch = Fmod.recenter_bodies(h.factors).C[:g][oa]
+        Cd = d64.factors.C[:g].cpu().numpy()[ob]
+        err = float(np.abs(Ch - Cd).max())
+        rel = err / float(np.abs(Ch).max())
+        log(f"  leaf moments: max abs diff {err:.3e} (tol 1e-9), over "
+            f"max|C| {rel:.3e}")
+        if not err <= 1e-9:
+            raise AssertionError(f"f64 leaf moments differ: {err}")
+        rec["f64_32"] = {"planes": g, "max_abs": err, "rel": rel}
+        del d64, h
+
+        log("  (6) 64 scans: export_dir, merge_planes, stages")
+        ex = pathlib.Path(tmp) / "export"
+        c64 = dataclasses.replace(cfg, max_scans=64)
+        oe = realworld.run(dataclasses.replace(c64, export_dir=str(ex)))
+        rows = np.loadtxt(ex / "convergence.txt", ndmin=2)
+        Rr, pr, _ = poses.read_pose_csv(ex / "refined_poses.csv")
+        perr = max(float(np.abs(Rr - oe["result"].R.cpu().numpy()).max()),
+                   float(np.abs(pr - oe["result"].p.cpu().numpy()).max()))
+        nv = int([x for x in (ex / "plane_cloud.ply").read_text()
+                  .splitlines()[:12] if x.startswith("element vertex")][0]
+                 .split()[-1])
+        nz = np.load(ex / "plane_cloud.npz")["world"].shape[0]
+        log(f"  export: {oe['num_planes']} planes, convergence rows "
+            f"{rows.tolist()}, refined_poses.csv vs result {perr:.3e}, PLY "
+            f"{nv} vertices, NPZ {nz}")
+        if not (len(rows) >= 2 and np.all(np.diff(rows[:, 0]) > 0)
+                and np.all(np.diff(rows[:, 1]) < 0) and perr <= 1e-9
+                and nv == nz > 0):
+            raise AssertionError("export check failed")
+        om = realworld.run(dataclasses.replace(c64, merge_planes=True))
+        log(f"  merge: {om['merged_planes']} merged of {oe['num_planes']}"
+            f" planes, residual {om['residual_initial']:.6f} -> "
+            f"{om['residual_final']:.6f}")
+        if not (0 < om["merged_planes"] <= oe["num_planes"]
+                and om["residual_final"] < om["residual_initial"]):
+            raise AssertionError("merge check failed")
+        os_ = realworld.run(dataclasses.replace(
+            c64, stages=coarse_to_fine.default_stages()))
+        for st in os_["stage_history"]:
+            log(f"  stage {st['stage']}: voxel {st['voxel_size']} m, "
+                f"{st['num_planes']} planes, {st['iters']} iters, "
+                f"{st['residual_initial']:.6f} -> "
+                f"{st['residual_final']:.6f}")
+        log(f"  stages, final: {os_['num_planes']} planes, residual "
+            f"{os_['residual_initial']:.6f} -> {os_['residual_final']:.6f}")
+        if not (os_["status"] == "ok"
+                and os_["residual_final"] < os_["residual_initial"]):
+            raise AssertionError("stages check failed")
+
+        log("  (7) the LM loop's rest on phase 6's factors")
+        R0t = torch.tensor(R0, dtype=torch.float32, device=dev)
+        p0t = torch.tensor(p0, dtype=torch.float32, device=dev)
+        rt, stamps = lm.damping_iter_timed(R0t, p0t, f, SolverConfig(),
+                                           **PACKED)
+        if not (all(np.array_equal(getattr(rt, k), getattr(ref, k),
+                                   equal_nan=True)
+                    for k in ("trace_res1", "trace_res2", "trace_u",
+                              "trace_accept"))
+                and torch.equal(rt.R, ref.R) and len(stamps) == rt.iters
+                and np.all(np.diff(stamps) > 0)):
+            raise AssertionError("damping_iter_timed differs from "
+                                 "damping_iter")
+        log(f"  damping_iter_timed: phase 6's trace bit for bit; stamps "
+            f"{np.round(stamps, 5).tolist()} s on {card}")
+        rec["timed_stamps_s"] = stamps.tolist()
+        state, k = None, 0
+        while state is None or (int(state["it"]) < ref.iters
+                                and not bool(state["done"])):
+            rr, state = lm.damping_iter_resumable(
+                R0t, p0t, f, SolverConfig(), state=state, chunk_iters=3,
+                centered=True, backend="packed", packed_impl="auto")
+            ck = pathlib.Path(tmp) / f"lm{k}.npz"
+            checkpoint.save(ck, rr.R, rr.p, **checkpoint.pack_lm_state(state))
+            state = checkpoint.unpack_lm_state(checkpoint.load(ck))
+            k += 1
+        if not (np.array_equal(rr.trace_res1, ref.trace_res1, equal_nan=True)
+                and np.array_equal(rr.trace_u, ref.trace_u, equal_nan=True)
+                and torch.equal(rr.R, ref.R) and rr.iters == ref.iters):
+            raise AssertionError("resumable chunks differ from the "
+                                 "one-shot solve")
+        log(f"  damping_iter_resumable: {k} chunks of 3 through "
+            f"checkpoint files, phase 6's solve bit for bit")
+    n = EVAL64_SCANS
+    vn = grid.voxelize(scans[:n], R0[:n], p0[:n], vcfg)
+    fr = Fmod.recenter_bodies(vn.factors)
+    T = lambda a, where: torch.tensor(a[:n], dtype=torch.float32,
+                                      device=where)
+    pcg = {}
+    for where in (dev, "cpu"):
+        pcg[str(where)] = lm.damping_iter(
+            T(R0, where), T(p0, where),
+            Fmod.factors_from_numpy(fr, device=where), SolverConfig(),
+            linear_solver="pcg", **PACKED)
+    pg = pcg[str(dev)]
+    log(f"  pcg, packed, first {n} scans ({vn.num_planes} planes): "
+        f"{pg.iters} iters, residual {pg.trace_res1[0]:.6f} -> "
+        f"{pg.residual:.6f}")
+    same_steps("pcg card", pg, pcg["cpu"], "CPU pcg")
+    rec["pcg_32"] = {"iters": pg.iters, "residual_initial":
+                     float(pg.trace_res1[0]), "residual": pg.residual}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {rec['seconds']:.1f} s")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -889,7 +1243,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/8 device")
+    log("phase 1/9 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -916,7 +1270,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/8 build")
+    log("phase 2/9 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -925,7 +1279,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/8 scene")
+    log("phase 3/9 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -942,7 +1296,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/8 kernels vs plain")
+    log("phase 4/9 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -1039,7 +1393,7 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/8 small slice: card vs plain CPU path")
+    log("phase 5/9 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -1057,7 +1411,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/8 slice: optimize_poses on the card")
+    log("phase 6/9 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -1131,7 +1485,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/8 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/9 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -1169,9 +1523,14 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/8 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/9 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
+
+    log("phase 9/9 slice 6: benchmark_realworld on the card")
+    rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
+                  counters)
+    log(f"  phase9: {json.dumps(rec9)}")
 
     kernels = []
     src1 = "balm_tpu_torch/csrc/packed_kernels.cu"
@@ -1179,9 +1538,9 @@ def main(argv=None) -> int:
     src3 = "balm_tpu_torch/csrc/hess_v3_kernels.cu"
     for name, src, replaces, main_key, path_launches in (
             ("csum", src1, "balm_tpu/ops/pallas_evaluate.py:115", "csum",
-             launches),
+             rec9["launches"]),
             ("rows", src1, "balm_tpu/ops/pallas_evaluate.py:1126", "rows",
-             launches),
+             rec9["launches"]),
             ("hess_v2", src2, "balm_tpu/ops/pallas_evaluate.py:491", "H",
              slice2["pallas2"]),
             ("hess_v3", src3, "balm_tpu/ops/pallas_evaluate.py:604", "H",
@@ -1196,6 +1555,8 @@ def main(argv=None) -> int:
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
+        if name in ("csum", "rows"):
+            rec["launches_optimize_poses"] = launches[name]
         if name == "hess_v2":
             rec["by_split"] = {
                 sp: {"ms": timing[k][0], "plain_ms": timing[k][1],

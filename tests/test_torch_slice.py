@@ -175,7 +175,6 @@ def test_unported_paths_raise():
     R = torch.tensor(R_gt, dtype=torch.float32)
     p = torch.tensor(p_gt, dtype=torch.float32)
     for kw in (dict(backend="large"), dict(edges=object()),
-               dict(linear_solver="pcg"),
                dict(hess_precision="bf16", centered=True, backend="packed")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tlm.damping_iter(R, p, f, **kw)
