@@ -3,9 +3,9 @@
 Counterpart: balm_tpu/solver/lm.py — damping_iter (:69) with the
 'xla' and 'packed' backends, the left and right updates and the
 'cholesky', 'cholesky_nofallback', 'lu' and 'pcg' solvers,
-damping_iter_resumable (:461) and damping_iter_timed (:509), with the
-same rules (reference BALM2::damping_iter, src/benchmark/
-bavoxel.hpp:1069-1166):
+damping_iter_resumable (:461) and damping_iter_timed (:509), all with
+pose-graph `edges` (:257-270), with the same rules (reference
+BALM2::damping_iter, src/benchmark/bavoxel.hpp:1069-1166):
 
   * solve (H + u D) dx = -J with D = diag(H) floored by the tau shift
     (lm.py:279-294)
@@ -36,7 +36,8 @@ with the JAX package's `packed_impl` and `chunk_planes` options
 solver is 'pcg', whose block-Jacobi blocks need (w, j)-major),
 evaluate_packed in (w, j)-major order for 'xla', 'pallas', 'pallas2'
 and 'pallas3' (the fused kernels B6, B4, B5), or the chunked evaluate
-when chunk_planes > 0.  The kernels run on the card, their plain
+when chunk_planes > 0; with edges the hybrid evaluate too is
+(w, j)-major, as in JAX.  The kernels run on the card, their plain
 versions on the CPU.
 """
 
@@ -55,8 +56,6 @@ from ..ops import packed as packed_mod
 from ..ops import packed_evaluate as pe
 from ..ops.precision import fp32_matmul
 from . import large
-
-_ROADMAP = "not ported yet (ROADMAP.md, queue A)"
 
 
 class LMResult(NamedTuple):
@@ -128,8 +127,8 @@ def _check(R, cfg, centered, update, linear_solver, backend, edges,
         raise ValueError("right update requires centered=False")
     if update not in ("left", "right"):
         raise ValueError(f"unknown update {update!r}")
-    if edges is not None:
-        raise NotImplementedError(f"pose-graph edges are {_ROADMAP}")
+    if edges is not None and update != "left":
+        raise ValueError("pose-graph edges require the left update")
     if linear_solver not in ("cholesky", "cholesky_nofallback", "lu",
                              "pcg"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
@@ -149,7 +148,9 @@ def _check(R, cfg, centered, update, linear_solver, backend, edges,
         if R.dtype != torch.float32:
             raise ValueError("packed backend is the float32 fast path")
     elif backend == "large":
-        raise NotImplementedError(f"backend={backend!r} is {_ROADMAP}")
+        raise ValueError("damping_iter has no backend 'large': the "
+                         "large-window solve is solver.large."
+                         "damping_iter_large (optimize_poses' 'large')")
     elif backend != "xla":
         raise ValueError(f"unknown backend {backend!r}")
     return backend, packed_impl
@@ -185,8 +186,11 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
     ('packed' only): the chunked evaluate over plane chunks of that many
     planes; it ignores packed_impl, as in JAX.  hess_precision ('packed'
     only) 'high' and 'highest' both run the exact fp32 product; 'bf16'
-    raises (ROADMAP queue B3).  Pose-graph `edges` are not ported yet and
-    raise.
+    raises (ROADMAP queue B3).
+    edges: optional ops.pose_graph.RelPoseEdges — SE(3) relative-pose
+    factors added to the plane cost, gradient and Hessian
+    (pose_graph.evaluate_relpose; balm_tpu/solver/lm.py:257-270); needs
+    the left update, and puts the hybrid evaluate in (w, j)-major order.
 
     The whole loop runs in full fp32 matrix products (TF32 off,
     ops/precision.fp32_matmul), as the JAX loop pins float32."""
@@ -197,19 +201,19 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
         cond, step, c, degenerate, eval_res = _build_loop(
             R, p, f, cfg, centered, use_lapack_eigh, update, linear_solver,
             backend, pcg_iters, pcg_tol, hess_precision, packed_impl,
-            chunk_planes)
+            chunk_planes, edges)
         while cond(c):
             c = step(c)
         return _finish(c, degenerate, eval_res, cfg.gauge_fix)
 
 
 def _packed_evals(f, hess_precision, packed_impl, chunk_planes,
-                  linear_solver):
+                  linear_solver, edges=None):
     """(eval_full, eval_res, jw) of the packed backend: jw is True when
     the evaluate gives H in (j, w)-major order (the hybrid evaluate
-    without chunking and without pcg, balm_tpu/solver/lm.py:198-205)."""
+    without edges, chunking and pcg, balm_tpu/solver/lm.py:198-205)."""
     pkf = packed_mod.pack_factors(f)     # once per solve, reused every iter
-    jw = (packed_impl == "hybrid" and chunk_planes == 0
+    jw = (packed_impl == "hybrid" and edges is None and chunk_planes == 0
           and linear_solver != "pcg")
     if chunk_planes > 0:
         pkf = packed_mod.pad_planes(pkf, chunk_planes)
@@ -253,9 +257,28 @@ def _xla_evals(f, centered, use_lapack_eigh, update):
     return eval_full, eval_res
 
 
+def _with_edges(eval_full, eval_res, edges):
+    """The evaluators with the pose-graph edges' cost, gradient and
+    Hessian added (balm_tpu/solver/lm.py:257-270)."""
+    if edges is None:
+        return eval_full, eval_res
+    from ..ops import pose_graph as PG
+
+    def full(R, p):
+        res, J, H = eval_full(R, p)
+        r2, J2, H2 = PG.evaluate_relpose(R, p, edges)
+        return (res + r2.to(res.dtype), J + J2.to(J.dtype),
+                H + H2.to(H.dtype))
+
+    def res_only(R, p):
+        res = eval_res(R, p)
+        return res + PG.relpose_cost(R, p, edges).to(res.dtype)
+    return full, res_only
+
+
 def _build_loop(R, p, f, cfg, centered, use_lapack_eigh, update,
                 linear_solver, backend, pcg_iters, pcg_tol, hess_precision,
-                packed_impl, chunk_planes):
+                packed_impl, chunk_planes, edges=None):
     """(cond, step, init, degenerate, eval_res) of the LM loop, shared by
     damping_iter, damping_iter_resumable and damping_iter_timed (JAX's
     _build_loop, balm_tpu/solver/lm.py:168-430)."""
@@ -267,11 +290,13 @@ def _build_loop(R, p, f, cfg, centered, use_lapack_eigh, update,
     degenerate = bool(int(f.planes_per_pose().min()) < cfg.min_planes_per_pose)
     if backend == "packed":
         eval_full, eval_res, jw = _packed_evals(
-            f, hess_precision, packed_impl, chunk_planes, linear_solver)
+            f, hess_precision, packed_impl, chunk_planes, linear_solver,
+            edges)
     else:
         eval_full, eval_res = _xla_evals(f, centered, use_lapack_eigh,
                                          update)
         jw = False
+    eval_full, eval_res = _with_edges(eval_full, eval_res, edges)
     update_fn = (lie.se3_right_update if update == "right"
                  else lie.se3_left_update)
 
@@ -421,7 +446,7 @@ def damping_iter_resumable(R, p, f: F.PlaneFactors,
     with fp32_matmul():
         cond, step, c, degenerate, eval_res = _build_loop(
             R, p, f, cfg, centered, False, "left", "cholesky", backend, 0,
-            1e-6, "high", packed_impl, 0)
+            1e-6, "high", packed_impl, 0, edges)
         if state is not None:
             c = _carry_of(state, c)
         limit = c.it + chunk_iters if chunk_iters > 0 else cfg.max_iters
@@ -434,7 +459,7 @@ def damping_iter_resumable(R, p, f: F.PlaneFactors,
 def damping_iter_timed(R, p, f: F.PlaneFactors,
                        cfg: SolverConfig = SolverConfig(), *,
                        centered: bool = False, use_lapack_eigh: bool = False,
-                       backend: str = "xla"):
+                       backend: str = "xla", edges=None):
     """LM with real per-iteration wall-clock stamps (the Supplementary
     'time cost' convergence-curve protocol; balm_tpu/solver/lm.py:509).
 
@@ -442,17 +467,18 @@ def damping_iter_timed(R, p, f: F.PlaneFactors,
     backend the hybrid evaluate), so on one device its trace equals
     damping_iter's bit for bit.  One step on the initial carry, discarded, warms the
     kernels and the allocator outside the timed region; each stamp is
-    taken after a torch.cuda.synchronize() on the card.  Returns
-    (LMResult, times (iters,) seconds since the solve's start).
+    taken after a torch.cuda.synchronize() on the card.  edges: as
+    damping_iter's (the JAX function has none).  Returns (LMResult, times
+    (iters,) seconds since the solve's start).
     """
     backend, packed_impl = _check(R, cfg, centered, "left", "cholesky",
-                                  backend, None, "high", "auto", 0)
+                                  backend, edges, "high", "auto", 0)
     cuda = R.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     with fp32_matmul():
         cond, step, c, degenerate, eval_res = _build_loop(
             R, p, f, cfg, centered, use_lapack_eigh, "left", "cholesky",
-            backend, 0, 1e-6, "high", packed_impl, 0)
+            backend, 0, 1e-6, "high", packed_impl, 0, edges)
         if cond(c):
             step(c)                                # warm-up, discarded
         sync()

@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--seed 0]
 
 Needs one CUDA card and nvcc (CUDA_HOME, /usr/local/cuda or PATH).  It
-imports neither jax nor balm_tpu.  Phases, each printed on a flushed line
-as it starts and ends; any failure raises and the script exits non-zero:
+imports neither jax nor balm_tpu (checked after phase 1 and at the end).
+Phases, each printed on a flushed line as it starts and ends; any
+failure raises and the script exits non-zero:
 
   1. device  - the card's name and power limit (nvidia-smi)
   2. build   - one nvcc process per source (csrc/packed_kernels.cu,
@@ -44,7 +45,8 @@ as it starts and ends; any failure raises and the script exits non-zero:
   6. slice   - the main path: optimize_poses(..., backend='packed') on
                the card with every kernel's launch count set to 0 just
                before and read just after; residual trace, RSME against
-               ground truth; then at the same size one evaluate (res, J,
+               ground truth (rotation and translation must both fall);
+               then at the same size one evaluate (res, J,
                H) and the first SLICE_ITERS LM iterations on the card
                against the plain CPU path; ms per LM iteration (CUDA
                events)
@@ -99,6 +101,33 @@ as it starts and ends; any failure raises and the script exits non-zero:
                through checkpoint files) against phase 6's solve bit for
                bit, and linear_solver='pcg' on the packed path at
                EVAL64_SCANS scans, card against CPU
+ 10. slice 7 - large windows and pose-graph edges on the card: (a) the
+               corridor (pipelines/corridor.py, CorridorConfig's widths) at
+               W=CORRIDOR_W, f32: corridor.run on the card and on the CPU
+               (RMSEs printed, not gated), then damping_iter_large with
+               the banded solve: ms per LM iteration (CUDA events), its
+               peak device memory above the resident factors (below the
+               (6W)^2 f32 H's size), the residual finite and falling, its
+               first SLICE_ITERS iterations card against CPU: printed in
+               f32 (the corridor's near-null modes make f32 steps
+               roundoff-chaotic, scripts/corridor_roundoff.py), held to
+               same_steps' bars in f64; evaluate_windowed + band_hessian
+               twice for the same bits; (b) the same with
+               linear_solver='pcg' (CG iterations per LM iteration; in
+               f64 the res2 of a rejected step after truncated CG is
+               printed, not held); (c) with odometry chain edges (i, i+1,
+               measured from the corrupted start, CHAIN_W_ROT /
+               CHAIN_W_TR); (d) damping_iter(edges=, centered=True,
+               backend='packed') on phase 6's factors with every launch
+               count set to 0 just before: csum and rows launched, its
+               first iterations card against CPU; (e) optimize_poses on
+               LARGE_SCANS scans of the same kind of scene (pose 0 exact)
+               with backend='auto' and LARGE_ITERS iterations at most: it
+               must take 'large', the residual and the rotation RSME
+               fall; voxelize / from_dense / solve seconds and the host's
+               peak RSS; its large solve's first iterations on the same
+               windowed factors card against CPU; (f) the import check
+               again, at the end
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
@@ -212,6 +241,18 @@ PACKED = dict(centered=True, backend="packed")
 SCANS = 256
 POINTS_PER_SCAN = 30000
 VOXEL = 2.0
+# phase 10: the corridor's width (CorridorConfig's published widths
+# otherwise), the odometry chain edges' weights (sigma 0.1 rad and 0.1 m)
+# and optimize_poses' scene above its large_threshold (600)
+CORRIDOR_W = 2048
+CHAIN_W_ROT = 100.0
+CHAIN_W_TR = 100.0
+LARGE_SCANS = 640
+# the iteration cap of the 640-scan solve: after the default 10
+# iterations neither the large nor the dense packed solve has brought the
+# rotation RSME of this 1280 m chain below its start; after 200 both have
+# (scripts/large_scene_convergence.py)
+LARGE_ITERS = 200
 
 
 def log(msg: str) -> None:
@@ -1234,6 +1275,300 @@ def slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
 
 
 # --------------------------------------------------------------------------
+# phase 10: slice 7
+# --------------------------------------------------------------------------
+
+def chain_edges(R, p, w_rot=CHAIN_W_ROT, w_tr=CHAIN_W_TR):
+    """Odometry chain edges (i, i+1) measured from poses R, p (numpy)."""
+    R, p = np.asarray(R, np.float64), np.asarray(p, np.float64)
+    i = np.arange(len(R) - 1)
+    j = i + 1
+    return (i, j, np.einsum("eba,ebc->eac", R[i], R[j]),
+            np.einsum("eba,eb->ea", R[i], p[j] - p[i]),
+            np.full(len(i), w_rot), np.full(len(i), w_tr))
+
+
+def large_vs_cpu(what, R0, p0, wf, cpu_wf, gate="all", **kw):
+    """The first SLICE_ITERS iterations of damping_iter_large on the card
+    against the plain CPU path on the same factors.  gate 'all':
+    same_steps' bars; 'accepted': the same accept pattern, every res1 and
+    the res2 of every accepted step within TOL_TRACE (a rejected trial
+    after CG truncated at non-positive curvature is roundoff-determined:
+    the CPU path against itself at 1 and 8 threads puts it ~1e-2 apart in
+    float64, scripts/corridor_roundoff.py), the rest printed; None: all
+    printed."""
+    from balm_tpu_torch.config import SolverConfig
+    from balm_tpu_torch.solver import large, lm
+
+    short = SolverConfig(max_iters=SLICE_ITERS, rel_tol=1e-10,
+                         min_planes_per_pose=0)
+    cpu_kw = dict(kw)
+    if kw.get("edges") is not None:
+        cpu_kw["edges"] = type(kw["edges"])(*[x.cpu()
+                                              for x in kw["edges"]])
+    t0 = time.perf_counter()
+    g = large.damping_iter_large(R0, p0, wf, short, **kw)
+    c = large.damping_iter_large(R0.cpu(), p0.cpu(), cpu_wf, short,
+                                 **cpu_kw)
+    log(f"  {what}: first {SLICE_ITERS} iterations card vs CPU "
+        f"({time.perf_counter() - t0:.1f} s):")
+    for name, tr in (("card", g), ("cpu", c)):
+        for line in lm.format_trace(tr).splitlines():
+            log(f"    {name} {line}")
+    if gate == "all":
+        same_steps(what, g, c, "CPU")
+        return
+    n = min(g.iters, c.iters)
+    acc = c.trace_accept[:n] > 0.5
+    same = np.array_equal(g.trace_accept[:n], c.trace_accept[:n])
+    for key, held in (("trace_res1", np.ones(n, bool)), ("trace_res2", acc)):
+        a = getattr(g, key)[:n].astype(np.float64)
+        b = getattr(c, key)[:n].astype(np.float64)
+        rel = np.abs(a - b) / np.abs(b)
+        if gate == "accepted":
+            top = float(np.max(rel[held], initial=0.0))
+            log(f"    {key} vs CPU: max rel {top:.3e} over the "
+                f"{'accepted steps' if key == 'trace_res2' else 'steps'} "
+                f"(tol {TOL_TRACE:.0e}); all {rel.max():.3e}")
+            if not (same and np.isfinite(top) and top <= TOL_TRACE):
+                raise AssertionError(f"{what}: {key} or the accept pattern "
+                                     f"differs from the CPU solve")
+        else:
+            log(f"    {key} vs CPU: max rel {rel.max():.3e} (printed, not "
+                f"gated)")
+
+
+def timed_large(R0, p0, wf, cfg, **kw):
+    """damping_iter_large on the card: (result, ms per LM iteration from
+    CUDA events, the solve's peak device memory above what was allocated
+    before it, in bytes)."""
+    import torch
+
+    from balm_tpu_torch.solver import large
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = large.damping_iter_large(R0, p0, wf, cfg, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return res, start.elapsed_time(end) / max(res.iters, 1), peak
+
+
+def check_falling(what, res):
+    used = res.trace_res1[:res.iters]
+    if not (res.iters > 0 and np.all(np.isfinite(used))
+            and np.isfinite(res.residual) and res.residual < used[0]):
+        raise AssertionError(f"{what}: residual not finite and falling: "
+                             f"{used} -> {res.residual}")
+
+
+def slice7(args, dev, card, counters, f, f_cpu, R0t, p0t):
+    """Phase 10: large windows.  `f`/`f_cpu` are the 256-scan scene's f32
+    recentered factors on the card / CPU, R0t, p0t its perturbed poses on
+    the card (phase 6).  Returns the phase's numbers."""
+    import dataclasses
+    import resource
+
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import factors_windowed as FW
+    from balm_tpu_torch.ops import pose_graph as PG
+    from balm_tpu_torch.pipelines import corridor
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.voxel import grid
+
+    t_phase = time.perf_counter()
+    rec = {}
+    ccfg = corridor.CorridorConfig(W=CORRIDOR_W)
+    scfg = SolverConfig(max_iters=ccfg.max_iters, rel_tol=1e-10,
+                        min_planes_per_pose=0)
+
+    log(f"  (a) the corridor at W={CORRIDOR_W}, f32, banded: "
+        "corridor.run on the card, then on the CPU")
+    outs = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        outs[where] = corridor.run(ccfg, device=where)
+        log(f"  corridor.run({where}): {json.dumps(outs[where])} "
+            f"({time.perf_counter() - t0:.2f} s with the scene) on {card}")
+    R_gt, p_gt, wf = corridor.make_corridor(ccfg, device=dev)
+    R0c, p0c = corridor.corrupt_poses(R_gt, p_gt, ccfg)
+    cpu_wf = FW.WindowedFactors(*[x.cpu() for x in wf])
+    # the same corridor in float64 for the card-vs-CPU gates: in float32
+    # the corridor's near-null modes make the steps roundoff-chaotic (the
+    # CPU path against itself at 1 and 8 threads: rejected trial costs
+    # 0.9% apart without edges, 32% with, scripts/corridor_roundoff.py),
+    # in float64 they agree to ~1e-9
+    c64 = dataclasses.replace(ccfg, dtype="float64")
+    R_gt64, p_gt64, wf64 = corridor.make_corridor(c64, device=dev)
+    R064, p064 = corridor.corrupt_poses(R_gt64, p_gt64, c64)
+    cpu_wf64 = FW.WindowedFactors(*[x.cpu() for x in wf64])
+    fac_bytes = sum(x.numel() * x.element_size() for x in wf)
+    dense_h = (6 * CORRIDOR_W) ** 2 * 4
+    rot0, tr0 = corridor.pose_rmse(R0c, p0c, R_gt, p_gt)
+    for solver in ("banded", "pcg"):
+        if solver == "pcg":
+            log("  (b) the same corridor, linear_solver='pcg'")
+        kw = dict(linear_solver=solver, cg_iters=ccfg.cg_iters,
+                  cg_tol=ccfg.cg_tol)
+        res, ms, peak = timed_large(R0c, p0c, wf, scfg, **kw)
+        rot1, tr1 = corridor.pose_rmse(res.R, res.p, R_gt, p_gt)
+        log(f"  {solver}: {wf.num_planes} planes, span {wf.span}, "
+            f"{res.iters} iterations, residual {res.trace_res1[0]:.6f} -> "
+            f"{res.residual:.6f}; RMSE rot {rot0:.4f} -> {rot1:.4f} deg, "
+            f"trans {tr0:.4f} -> {tr1:.4f} m; {ms:.3f} ms per LM iteration "
+            f"(CUDA events), solve {ms * res.iters / 1e3:.3f} s, peak device "
+            f"memory of the solve {peak / 2**20:.2f} MiB above the "
+            f"{fac_bytes / 2**20:.2f} MiB of resident factors (dense "
+            f"(6W)^2 f32 H alone: {dense_h / 2**20:.0f} MiB) on {card}")
+        if solver == "pcg":
+            log(f"  pcg: CG iterations per LM iteration "
+                f"{res.trace_cg[:res.iters].tolist()} on {card}")
+        check_falling(f"corridor {solver}", res)
+        if solver == "banded" and not peak < dense_h:
+            raise AssertionError(f"banded solve peak {peak} B >= {dense_h}")
+        large_vs_cpu(f"corridor {solver} f32", R0c, p0c, wf, cpu_wf,
+                     gate=None, **kw)
+        large_vs_cpu(f"corridor {solver} f64", R064, p064, wf64, cpu_wf64,
+                     gate="all" if solver == "banded" else "accepted", **kw)
+        rec[f"corridor_{solver}"] = {
+            "planes": wf.num_planes, "span": wf.span, "iters": res.iters,
+            "residual_initial": float(res.trace_res1[0]),
+            "residual": res.residual, "ms_per_iter": ms,
+            "solve_s": ms * res.iters / 1e3, "peak_mib": peak / 2**20,
+            "rmse_rot_deg": [rot0, rot1], "rmse_trans_m": [tr0, tr1],
+            "cg_iters": res.trace_cg[:res.iters].tolist()}
+    rec["corridor_run"] = outs
+    # the windowed evaluate and the band assembly: the same bits twice
+    seg = FW.pose_segments(wf.base, wf.span, CORRIDOR_W)
+    runs = []
+    for _ in range(2):
+        parts = FW.evaluate_windowed(R0c, p0c, wf, seg=seg)
+        runs.append((parts.res, parts.J, parts.D, parts.rows,
+                     FW.band_hessian(parts, CORRIDOR_W)))
+    if not all(torch.equal(x, y) for x, y in zip(*runs)):
+        raise AssertionError("evaluate_windowed + band_hessian: two runs "
+                             "differ")
+    log("  evaluate_windowed + band_hessian twice: the same bits")
+    del runs, parts
+
+    log(f"  (c) the corridor with odometry chain edges (w_rot "
+        f"{CHAIN_W_ROT}, w_tr {CHAIN_W_TR}), banded")
+    edges = PG.edges_from_numpy(chain_edges(R0c.cpu(), p0c.cpu()),
+                                device=dev, dtype=torch.float32)
+    res, ms, peak = timed_large(R0c, p0c, wf, scfg, edges=edges)
+    rot1, tr1 = corridor.pose_rmse(res.R, res.p, R_gt, p_gt)
+    log(f"  edges: {res.iters} iterations, residual "
+        f"{res.trace_res1[0]:.6f} -> {res.residual:.6f}; RMSE rot "
+        f"{rot0:.4f} -> {rot1:.4f} deg, trans {tr0:.4f} -> {tr1:.4f} m; "
+        f"{ms:.3f} ms per LM iteration, peak {peak / 2**20:.2f} MiB on "
+        f"{card}")
+    check_falling("corridor edges", res)
+    large_vs_cpu("corridor edges f32", R0c, p0c, wf, cpu_wf, gate=None,
+                 edges=edges)
+    edges64 = PG.edges_from_numpy(chain_edges(R064.cpu(), p064.cpu()),
+                                  device=dev, dtype=torch.float64)
+    large_vs_cpu("corridor edges f64", R064, p064, wf64, cpu_wf64,
+                 edges=edges64)
+    rec["corridor_edges"] = {"iters": res.iters, "residual": res.residual,
+                             "ms_per_iter": ms, "peak_mib": peak / 2**20,
+                             "rmse_rot_deg": [rot0, rot1],
+                             "rmse_trans_m": [tr0, tr1]}
+    del wf, cpu_wf, R_gt, p_gt, R0c, p0c, edges, wf64, cpu_wf64, edges64
+
+    log("  (d) dense damping_iter(edges=, centered=True, backend='packed') "
+        f"on phase 6's {SCANS}-scan factors")
+    fields = chain_edges(R0t.cpu(), p0t.cpu())
+    e_card = PG.edges_from_numpy(fields, device=dev, dtype=torch.float32)
+    e_cpu = PG.edges_from_numpy(fields, dtype=torch.float32)
+    short = SolverConfig(max_iters=SLICE_ITERS)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    dres = lm.damping_iter(R0t, p0t, f, SolverConfig(), edges=e_card,
+                           **PACKED)
+    end.record()
+    torch.cuda.synchronize()
+    got = {k: c.launches for k, c in counters.items()}
+    ms = start.elapsed_time(end) / max(dres.iters, 1)
+    log(f"  packed + edges: {dres.iters} iterations, residual "
+        f"{dres.trace_res1[0]:.6f} -> {dres.residual:.6f}, {ms:.3f} ms per "
+        f"LM iteration (CUDA events) on {card}; launches {got}")
+    if got["csum"] <= 0 or got["rows"] <= 0:
+        raise AssertionError(f"packed + edges: launches {got}")
+    check_falling("packed + edges", dres)
+    t0 = time.perf_counter()
+    g = lm.damping_iter(R0t, p0t, f, short, edges=e_card, **PACKED)
+    c = lm.damping_iter(R0t.cpu(), p0t.cpu(), f_cpu, short, edges=e_cpu,
+                        **PACKED)
+    log(f"  packed + edges, first {SLICE_ITERS} iterations card vs CPU "
+        f"({time.perf_counter() - t0:.1f} s):")
+    same_steps("packed + edges", g, c, "CPU")
+    rec["packed_edges"] = {"iters": dres.iters, "residual": dres.residual,
+                           "ms_per_iter": ms, "launches": got}
+
+    log(f"  (e) optimize_poses at {LARGE_SCANS} scans, backend='auto', "
+        f"{LARGE_ITERS} iterations at most")
+    R_gt, p_gt, scans = make_scene(LARGE_SCANS, args.seed + 11)
+    R0, p0 = perturb(R_gt, p_gt, args.seed + 11)
+    R0[0], p0[0] = R_gt[0], p_gt[0]           # pose 0 exact
+    vcfg = VoxelConfig(voxel_size=VOXEL)
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    t0 = time.perf_counter()
+    R1, p1, info = balm_tpu_torch.optimize_poses(
+        scans, R0, p0, voxel=vcfg, solver=SolverConfig(max_iters=LARGE_ITERS))
+    wall = time.perf_counter() - t0
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    rs0 = rsme(R0, p0, R_gt, p_gt)
+    rs1 = rsme(R1, p1, R_gt, p_gt)
+    log(f"  info: {json.dumps(info)} on {card}")
+    log(f"  optimize_poses {wall:.3f} s wall: voxelize "
+        f"{info['seconds']['voxelize']:.3f} s, from_dense "
+        f"{info['seconds']['from_dense']:.3f} s, solve "
+        f"{info['seconds']['solve']:.3f} s; host peak RSS "
+        f"{rss1 / 2**20:.2f} GiB (before the call {rss0 / 2**20:.2f} GiB)"
+        f" on {card}")
+    log(f"  RSME rot {rs0[0]:.6e} -> {rs1[0]:.6e} rad, trans "
+        f"{rs0[1]:.6e} -> {rs1[1]:.6e} m on {card}")
+    if not (info["backend"] == "large" and info["status"] == "ok"
+            and np.isfinite(info["residual"])
+            and info["residual"] < info["residual_initial"]
+            and rs1[0] < rs0[0]):
+        raise AssertionError(f"optimize_poses at {LARGE_SCANS} scans: "
+                             f"info {info}, rsme {rs0} -> {rs1}")
+    # the same windowed factors, card against CPU
+    vres = grid.voxelize(scans, R0, p0, vcfg)
+    wfn = FW.from_dense(Fmod.recenter_bodies(vres.factors).astype(
+        np.float32))
+    del vres
+    wfl = FW.windowed_from_numpy(wfn, device=dev)
+    T = lambda a, d: torch.tensor(a, dtype=torch.float32, device=d)
+    large_vs_cpu(f"optimize_poses' large solve at {LARGE_SCANS} scans",
+                 T(R0, dev), T(p0, dev), wfl, FW.windowed_from_numpy(wfn))
+    rec["large_scene"] = {
+        "scans": LARGE_SCANS, "planes": info["num_planes"],
+        "span": info["span"], "iters": info["iters"],
+        "residual": [info["residual_initial"], info["residual"]],
+        "seconds": info["seconds"], "wall_s": wall,
+        "host_peak_rss_gib": rss1 / 2**20, "rsme_rot": [rs0[0], rs1[0]],
+        "rsme_trans": [rs0[1], rs1[1]]}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {rec['seconds']:.1f} s on {card}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1243,7 +1578,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/9 device")
+    log("phase 1/10 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -1270,7 +1605,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/9 build")
+    log("phase 2/10 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -1279,7 +1614,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/9 scene")
+    log("phase 3/10 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -1296,7 +1631,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/9 kernels vs plain")
+    log("phase 4/10 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -1393,7 +1728,7 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/9 small slice: card vs plain CPU path")
+    log("phase 5/10 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -1411,7 +1746,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/9 slice: optimize_poses on the card")
+    log("phase 6/10 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -1476,16 +1811,20 @@ def main(argv=None) -> int:
     log(f"  LM solve: {res.iters} iterations, {ms_iter:.3f} ms per "
         f"iteration (CUDA events, packing included) on {card}")
 
+    # both RSMEs must fall: the translation RSME alone falls by a gauge
+    # artifact here (pose 0 perturbed by 2 degrees inflates the starting
+    # value through gauge_fix), the rotation RSME does not (phase 9's
+    # check)
     ok = (launches["csum"] > 0 and launches["rows"] > 0
           and np.isfinite(info["residual"])
           and info["residual"] < info["residual_initial"]
           and info["status"] == "ok" and rs1[1] < rs0[1]
-          and info["num_planes"] >= 4096)
+          and rs1[0] < rs0[0] and info["num_planes"] >= 4096)
     if not ok:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/9 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/10 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -1523,14 +1862,25 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/9 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/10 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
 
-    log("phase 9/9 slice 6: benchmark_realworld on the card")
+    log("phase 9/10 slice 6: benchmark_realworld on the card")
     rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
                   counters)
     log(f"  phase9: {json.dumps(rec9)}")
+
+    log("phase 10/10 slice 7: large windows and pose-graph edges on the card")
+    rec10 = slice7(args, dev, card, counters, f, f_cpu, R0t, p0t)
+    log(f"  phase10: {json.dumps(rec10)}")
+    # every module of the port is imported by now: still no jax, no
+    # balm_tpu, no tests
+    bad = [m for m in sys.modules
+           if m.split(".")[0] in ("jax", "balm_tpu", "tests")]
+    if bad:
+        raise AssertionError(f"the smoke run imported {bad}")
+    log("  import check at the end: no jax, balm_tpu or tests module")
 
     kernels = []
     src1 = "balm_tpu_torch/csrc/packed_kernels.cu"
