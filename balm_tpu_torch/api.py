@@ -1,8 +1,10 @@
 """One-call user API: voxelize -> (recenter) -> LM solve -> gauge.
 
-Counterpart: balm_tpu/api.py:30 (optimize_poses), with its backend
-dispatch (:88-94): 'auto' takes 'large' for W > large_threshold (600),
-else 'packed' in float32 and 'xla' in float64.
+Counterpart: balm_tpu/api.py:30 (optimize_poses), with its dtype and
+backend dispatch (:82-94), the card in the TPU's place: dtype None takes
+float32 on the card and float64 elsewhere; 'auto' takes 'large' for
+W > large_threshold (600), else 'packed' in float32 on the card and
+'xla' otherwise.
 
     import balm_tpu_torch
     R1, p1, info = balm_tpu_torch.optimize_poses(scans, R0, p0)
@@ -13,12 +15,12 @@ BALM2::damping_iter):
   2. float32: recenter_bodies in f64, then the cast to f32 on the device;
      float64: the raw moments
   3. the solve:
-     * backend='packed' (the float32 default up to large_threshold
+     * backend='packed' (the default on the card up to large_threshold
        scans, the JAX package's accelerator choice): solver/lm.
        damping_iter with the hybrid packed evaluate, the `csum` and
        `rows` CUDA kernels on 'cuda', their plain PyTorch versions on
        'cpu'
-     * backend='xla' (the float64 default up to large_threshold):
+     * backend='xla' (the default off the card up to large_threshold):
        damping_iter over ops/factors.py's evaluators, uncentered in
        float64, centered on the recentered factors in float32
      * backend='large' (the default above large_threshold scans):
@@ -57,7 +59,7 @@ def optimize_poses(
     voxel: VoxelConfig = VoxelConfig(),
     solver: SolverConfig = SolverConfig(),
     backend: str = "auto",   # 'auto' | 'packed' ('pallas') | 'xla' | 'large'
-    dtype: Optional[str] = None,    # None = 'float32'
+    dtype: Optional[str] = None,    # None: 'float32' on the card
     large_threshold: int = 600,
     loop_closure: bool = False,
     loop_config=None,
@@ -67,9 +69,11 @@ def optimize_poses(
     """Bundle-adjust a pose window against self-consistent plane factors.
 
     scans: list of (Ni, 3) body-frame clouds; R (W,3,3), p (W,3) initial
-    poses.  dtype 'float32' (default) or 'float64'; backend 'auto' takes
-    'large' for W > large_threshold, else 'packed' in float32 and 'xla'
-    in float64.  Returns (R, p, info) with R, p numpy arrays of `dtype`
+    poses.  dtype 'float32' or 'float64' (None: 'float32' on a CUDA
+    device, 'float64' elsewhere); backend 'auto' takes 'large' for
+    W > large_threshold, else 'packed' in float32 on a CUDA device and
+    'xla' otherwise — the JAX package's rule with the card in the TPU's
+    place.  Returns (R, p, info) with R, p numpy arrays of `dtype`
     and info holding num_planes, status, iters, residual_initial,
     residual and, for the dense backends, the launch counts of the csum
     and rows CUDA kernels during this call; for 'large' instead the span
@@ -78,8 +82,12 @@ def optimize_poses(
     W = len(scans)
     if loop_closure or loop_config is not None:
         raise NotImplementedError(f"loop_closure is {_ROADMAP}")
+    device = torch.device(device)
+    # the JAX package's rule (balm_tpu/api.py:82-93) with the card in the
+    # TPU's place: float32 and 'packed' on it, float64 and 'xla' elsewhere
+    on_card = device.type == "cuda"
     if dtype is None:
-        dtype = "float32"
+        dtype = "float32" if on_card else "float64"
     if dtype not in ("float32", "float64"):
         raise ValueError(f"unknown dtype {dtype!r}")
     if backend == "pallas":
@@ -88,12 +96,11 @@ def optimize_poses(
         if W > large_threshold:
             backend = "large"
         else:
-            backend = "packed" if dtype == "float32" else "xla"
+            backend = "packed" if on_card and dtype == "float32" else "xla"
     if backend not in ("packed", "xla", "large"):
         raise ValueError(f"unknown backend {backend!r}")
     if W == 0:
         raise ValueError("optimize_poses needs at least one scan")
-    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("optimize_poses: no CUDA device; pass "
                            "device='cpu' for the plain PyTorch path")

@@ -22,7 +22,9 @@ The Hessian product H = sum_k M_k M_k^T of the hybrid and xla paths is a
 plain matrix product outside any kernel (torch.matmul, as the JAX package
 leaves it to XLA's dot), run in full fp32: TF32 is switched off around
 it (precision.fp32_matmul; the LM loop holds the same context), because TF32's 10-bit mantissa on moment math is the same silent
-corruption as one bf16 pass on the TPU's MXU.  The fused kernels B4,
+corruption as one bf16 pass on the TPU's MXU.  Only a caller who asks
+for hess_precision='bf16' gets that one pass (_bf16_product, the JAX
+package's Precision.DEFAULT).  The fused kernels B4,
 B5 and B6 compute the product on the tensor cores as the TPU kernels do,
 from bf16 pieces of each value (split_bf16): `'bf16x3'` (three products
 of hi/lo pieces, the default of B4 and B5 and JAX's) or `'f32'` (six
@@ -342,13 +344,9 @@ def _aux_from_csum(csum, pk: PackedFactors, gap_eps):
 
 
 def _hess_precision(hess_precision):
-    """'high'/'highest'/None -> fp32; 'bf16' waits for ROADMAP queue B3."""
-    if hess_precision in (None, "high", "highest"):
-        return
-    if hess_precision == "bf16":
-        raise NotImplementedError(
-            "hess_precision='bf16' is not ported yet (ROADMAP.md, queue B3)")
-    raise ValueError(f"unknown hess_precision {hess_precision!r}")
+    """Check a hess_precision: None, 'high', 'highest' or 'bf16'."""
+    if hess_precision not in (None, "high", "highest", "bf16"):
+        raise ValueError(f"unknown hess_precision {hess_precision!r}")
 
 
 def _split(split):
@@ -361,7 +359,7 @@ def _split(split):
 def split_of(hess_precision):
     """The JAX package's split of the fused kernels for a hess_precision
     (pallas_evaluate.py:999-1018 after lm.py:195): None and 'highest'
-    give 'f32', 'high' gives 'bf16x3'."""
+    give 'f32', 'high' and 'bf16' give 'bf16x3'."""
     return "f32" if hess_precision in (None, "highest") else "bf16x3"
 
 
@@ -381,11 +379,14 @@ def split_bf16(x, pieces):
     return tuple(out)
 
 
-def _jw_product(rows):
+def _jw_product(rows, hess_precision=None):
     """rows (3, 6, Wp, Gp) -> H = sum_k M_k M_k^T (6Wp, 6Wp), fp32,
-    (j, w)-major: the views M_k (6Wp, Gp) are layout-free."""
+    (j, w)-major: the views M_k (6Wp, Gp) are layout-free.  Exact fp32
+    products, or at hess_precision='bf16' _bf16_product."""
     Wp, Gp = rows.shape[2], rows.shape[3]
     M = rows.view(3, 6 * Wp, Gp)
+    if hess_precision == "bf16":
+        return _bf16_product(M)
     with fp32_matmul():
         H = torch.mm(M[0], M[0].T)
         H.addmm_(M[1], M[1].T)
@@ -393,17 +394,36 @@ def _jw_product(rows):
     return H
 
 
+def _bf16_product(M):
+    """sum_k M_k M_k^T for M (3, n, Gp) fp32 as ONE bf16 pass with fp32
+    accumulation — the TPU's Precision.DEFAULT, hess_precision='bf16' of
+    the xla, hybrid and chunked paths (pallas_evaluate.py:928-936,
+    :1222-1228).  The rows are rounded to bf16 once (to nearest even, as
+    JAX's astype); on the card one bf16 torch.mm with an fp32 result over
+    the three rank rows side by side (K = 3 Gp); its plain version, for
+    CPU tensors, multiplies the rounded rows in fp32 (each product of two
+    bf16 values is exact in fp32)."""
+    n = M.shape[1]
+    A = M.to(torch.bfloat16).permute(1, 0, 2).reshape(n, -1)
+    if A.device.type == "cpu":
+        A = A.to(torch.float32)
+        with fp32_matmul():
+            return torch.mm(A, A.T)
+    return torch.mm(A, A.T, out_dtype=torch.float32)
+
+
 def hess_packed_hybrid(pose, mom, cen, aux, *, hess_precision=None):
     """-> (Htilde (6Wp, 6Wp) in (j, w)-major order, J (Wp, 6),
-    D (Wp, 36)): the `rows` kernel, then H = sum_k M_k M_k^T in fp32."""
+    D (Wp, 36)): the `rows` kernel, then H = sum_k M_k M_k^T in fp32
+    (one bf16 pass at hess_precision='bf16')."""
     _hess_precision(hess_precision)
     rows, J, D = rows_packed(pose, mom, cen, aux)
-    return _jw_product(rows), J, D
+    return _jw_product(rows, hess_precision), J, D
 
 
 def hess_packed_xla(pose, mom, cen, aux, *, hess_precision=None):
     """The XLA formulation: -> (Htilde (6Wp, 6Wp) in (w, j)-MAJOR order,
-    J (Wp, 6), D (Wp, 36)).  The `rows` kernel and the fp32 product as in
+    J (Wp, 6), D (Wp, 36)).  The `rows` kernel and the product as in
     hess_packed_hybrid, then Htilde (9.4 MB at Wp = 256) is permuted to
     (w, j)-major order, not the rows (212 MB)."""
     H, J, D = hess_packed_hybrid(pose, mom, cen, aux,
@@ -708,10 +728,12 @@ def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
       'pallas3'  B5 pose-block-pair kernel (hess_packed_v3)
 
     The plane moments are the B1 `csum` kernel for every impl.
-    hess_precision: None, 'high' or 'highest'; 'bf16' raises (ROADMAP
-    queue B3).  The xla and hybrid products are exact fp32 at each; the
-    fused kernels take the JAX package's split (split_of): 'f32' at None
-    and 'highest', 'bf16x3' at 'high'."""
+    hess_precision: None, 'high', 'highest' or 'bf16'.  The xla and
+    hybrid products are exact fp32 at the first three and one bf16 pass
+    at 'bf16' (_bf16_product, the TPU's DEFAULT); the fused kernels take
+    the JAX package's split (split_of): 'f32' at None and 'highest',
+    'bf16x3' at 'high' and 'bf16'; 'pallas' (B6) is exact at every
+    setting, as the JAX kernel ignores it."""
     _hess_precision(hess_precision)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
@@ -720,13 +742,16 @@ def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
     if impl == "pallas2" and pallas2_to_pallas3(Wp):
         impl = "pallas3"
     split = split_of(hess_precision)
-    jw_major = {"hybrid": hess_packed_hybrid, "pallas": hess_packed,
+    jw_major = {"hybrid": lambda *a: hess_packed_hybrid(
+                    *a, hess_precision=hess_precision),
+                "pallas": hess_packed,
                 "pallas2": lambda *a: hess_packed_v2(*a, split=split)}
     pose = pad_poses(R, p, Wp).to(torch.float32)
     csum = csum_packed(pose, pk.mom, pk.cen, pk.cfix)
     res, aux = _aux_from_csum(csum, pk, gap_eps)
     if impl == "xla":
-        Ht, Jt, Dt = hess_packed_xla(pose, pk.mom, pk.cen, aux)
+        Ht, Jt, Dt = hess_packed_xla(pose, pk.mom, pk.cen, aux,
+                                     hess_precision=hess_precision)
     elif impl == "pallas3":
         Ht, Jt, Dt = hess_packed_v3(pose, pk.mom, pk.cen, aux, split=split)
     else:
@@ -783,7 +808,8 @@ def evaluate_packed_chunked(R, p, pk: PackedFactors, *, n_chunks: int,
     for pc in chunks or _chunk_pk(pk, n_chunks):
         csum = csum_packed(pose, pc.mom, pc.cen, pc.cfix)
         res_c, aux = _aux_from_csum(csum, pc, gap_eps)
-        H_c, J_c, D_c = hess_packed_xla(pose, pc.mom, pc.cen, aux)
+        H_c, J_c, D_c = hess_packed_xla(pose, pc.mom, pc.cen, aux,
+                                        hess_precision=hess_precision)
         if res is None:
             res, Ht, Jt, Dt = res_c, H_c, J_c, D_c
         else:

@@ -185,8 +185,11 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
     'pallas3' — see ops.packed_evaluate.evaluate_packed.  chunk_planes > 0
     ('packed' only): the chunked evaluate over plane chunks of that many
     planes; it ignores packed_impl, as in JAX.  hess_precision ('packed'
-    only) 'high' and 'highest' both run the exact fp32 product; 'bf16'
-    raises (ROADMAP queue B3).
+    only): 'high' (default) or 'highest' runs the hybrid, xla and chunked
+    products in exact fp32, 'bf16' as one bf16 pass with fp32
+    accumulation (the TPU's DEFAULT); pallas2 and pallas3 take 'bf16x3'
+    at 'high' and 'bf16', 'f32' at 'highest'; pallas is exact at each
+    (ops.packed_evaluate.evaluate_packed).
     edges: optional ops.pose_graph.RelPoseEdges — SE(3) relative-pose
     factors added to the plane cost, gradient and Hessian
     (pose_graph.evaluate_relpose; balm_tpu/solver/lm.py:257-270); needs

@@ -1,9 +1,9 @@
 """Adaptive voxelization: scans -> plane factor tensors (host, numpy).
 
 Counterpart: balm_tpu/voxel/grid.py — voxelize (:87), _plane_test (:75),
-_assemble (:298), _moment_bincount (:52), down_sample_stride (:354) and
-down_sample_voxel (:360), with the native (C++,
-balm_tpu_torch/native) and numpy backends.  Host code: association runs
+_assemble (:298), _moment_bincount (:52), down_sample_stride (:354),
+down_sample_voxel (:360) and StreamingVoxelizer (:380), with the native
+(C++, balm_tpu_torch/native) and numpy backends.  Host code: association runs
 once per BA problem in f64 numpy; the per-iteration hot path is on the
 device.  Re-design of the reference's pointer octree (cut_voxel
 bavoxel.hpp:1170-1223, recut/cut_func/judge_eigen bavoxel.hpp:626-776,
@@ -169,14 +169,7 @@ def voxelize(
         )
 
     # --- root voxel hash (cut_voxel, bavoxel.hpp:1178-1184) ---
-    coords = np.floor(world / cfg.voxel_size).astype(np.int64)
-    if np.any(np.abs(coords) >= _OFFSET):
-        raise ValueError("point cloud exceeds voxel-grid index range")
-    key = (
-        ((coords[:, 0] + _OFFSET) << 42)
-        | ((coords[:, 1] + _OFFSET) << 21)
-        | (coords[:, 2] + _OFFSET)
-    )
+    key = _root_key(world, cfg.voxel_size)
     uniq, cell_of_point = np.unique(key, return_inverse=True)
     n_cells = len(uniq)
     cx = (uniq >> 42) - _OFFSET
@@ -367,3 +360,142 @@ def down_sample_voxel(points: np.ndarray, voxel_size: float) -> np.ndarray:
     for a in range(3):
         out[:, a] = np.bincount(inv, points[:, a], minlength=n) / cnt
     return out
+
+
+def _root_key(world: np.ndarray, voxel_size: float) -> np.ndarray:
+    """Packed int64 root-voxel key per point (cut_voxel,
+    bavoxel.hpp:1178-1184)."""
+    coords = np.floor(world / voxel_size).astype(np.int64)
+    if np.any(np.abs(coords) >= _OFFSET):
+        raise ValueError("point cloud exceeds voxel-grid index range")
+    return (((coords[:, 0] + _OFFSET) << 42)
+            | ((coords[:, 1] + _OFFSET) << 21)
+            | (coords[:, 2] + _OFFSET))
+
+
+class StreamingVoxelizer:
+    """Incremental root-cell accumulation — the reference's per-scan
+    `cut_voxel` into a persistent map (consistency.cpp:127-136,
+    bavoxel.hpp:1170-1223).  Each inserted scan routes its points into
+    root voxels, keeping the raw per-scan points (vec_orig/vec_tran)
+    and running per-(cell, scan) world moments (sig_orig/sig_tran).
+    `finalize` runs the subdivision and harvest once, as the one-shot
+    `voxelize` does when the window is full, with the root planarity
+    decisions taken from the incrementally accumulated moments.
+
+    The final factors equal batch `voxelize` on the same scans, up to
+    the order of the plane leaves (tests/test_torch_covariance.py).
+    Host numpy, as the JAX package's (balm_tpu/voxel/grid.py:380).
+    """
+
+    def __init__(self, W: int, cfg: VoxelConfig = VoxelConfig(), *,
+                 dtype=np.float64):
+        self.W = W
+        self.cfg = cfg
+        self.dtype = dtype
+        self._scans = []          # (scan_id, body, world, key) chunks
+        self._moments = {}        # root key -> {scan: (4, 4) moment}
+        self.n_inserted = 0
+
+    def insert(self, scan_idx: int, pts_body: np.ndarray,
+               R: np.ndarray, p: np.ndarray):
+        """Route one scan's points into root voxels (cut_voxel)."""
+        body = pts_body.astype(self.dtype, copy=False)
+        world = body @ R.astype(self.dtype).T + p.astype(self.dtype)
+        key = _root_key(world, self.cfg.voxel_size)
+        self._scans.append((scan_idx, body, world, key))
+        # the running per-(cell, scan) world moments: finalize's root
+        # decisions come from these accumulators, not a batch recompute
+        uniq, inv = np.unique(key, return_inverse=True)
+        C = _moment_bincount(world, inv, len(uniq))
+        for k, Ck in zip(uniq.tolist(), C):
+            slot = self._moments.setdefault(k, {})
+            slot[scan_idx] = slot[scan_idx] + Ck if scan_idx in slot else Ck
+        self.n_inserted += 1
+
+    def finalize(self, *, pad_to: int = 128, weighting: str = "unit"):
+        """recut + tras_opt over the accumulated map -> VoxelizeResult."""
+        cfg = self.cfg
+        W = self.W
+        keys = np.asarray(sorted(self._moments), np.int64)
+        n_cells = len(keys)
+        # layer-0 moments from the incremental accumulators
+        C0 = np.zeros((n_cells, 4, 4), self.dtype)
+        for i, k in enumerate(keys.tolist()):
+            C0[i] = sum(self._moments[k].values())
+        is_plane0, dec0, cent0, _ = _plane_test(C0, cfg.eigen_ratio[0])
+        alive0 = C0[:, 3, 3] > cfg.min_points
+        is_plane0 &= alive0
+
+        # the point-level view, once, for subdivision and emission
+        scan_id = np.concatenate([
+            np.full(len(b), s, np.int64) for s, b, _, _ in self._scans])
+        body = np.concatenate([b for _, b, _, _ in self._scans])
+        world = np.concatenate([w for _, _, w, _ in self._scans])
+        key = np.concatenate([k for _, _, _, k in self._scans])
+        cell_of_point = np.searchsorted(keys, key)
+
+        point_leaf = np.full(len(body), -1, np.int64)
+        leaf_C, leaf_center, leaf_layer, leaf_dec = [], [], [], []
+
+        # layer-0 plane leaves
+        plane_ids = np.nonzero(is_plane0)[0]
+        if len(plane_ids):
+            remap = np.full(n_cells, -1, np.int64)
+            remap[plane_ids] = np.arange(len(plane_ids))
+            on_plane = remap[cell_of_point] >= 0
+            leafid = remap[cell_of_point[on_plane]]
+            seg = leafid * W + scan_id[on_plane]
+            Cl = _moment_bincount(body[on_plane], seg, len(plane_ids) * W)
+            leaf_C.append(Cl.reshape(len(plane_ids), W, 4, 4))
+            point_leaf[on_plane] = leafid
+            leaf_center.append(cent0[plane_ids])
+            leaf_layer.append(np.zeros(len(plane_ids), np.int64))
+            leaf_dec.append(dec0[plane_ids])
+
+        # deeper layers: the batch pipeline on the subdividing cells only
+        # (the same recut recursion), in WORLD space (identity poses over
+        # the transformed points); the deeper leaves' factor moments are
+        # then rebuilt from the BODY coordinates
+        can_split = alive0 & ~is_plane0 & (cfg.layer_limit > 0)
+        sel = can_split[cell_of_point]
+        if np.any(sel):
+            sub = voxelize(
+                [world[sel & (scan_id == w)] for w in range(W)],
+                np.tile(np.eye(3), (W, 1, 1)), np.zeros((W, 3)), cfg,
+                dtype=self.dtype, pad_to=pad_to, weighting=weighting,
+                backend="numpy")
+            # sub re-derives the roots over the same grid: only its
+            # deeper leaves are new (its root planes were excluded here)
+            n0 = sum(len(c) for c in leaf_C)
+            kidx = np.nonzero(sub.leaf_layer > 0)[0]
+            if len(kidx):
+                remap2 = np.full(sub.num_planes, -1, np.int64)
+                remap2[kidx] = np.arange(len(kidx)) + n0
+                subm = sub.point_leaf >= 0
+                gidx = np.nonzero(sel)[0]
+                # sub's points are ordered scan-major
+                order = np.concatenate(
+                    [gidx[scan_id[gidx] == w] for w in range(W)])
+                point_leaf[order[subm]] = remap2[sub.point_leaf[subm]]
+                deep = point_leaf >= n0
+                seg2 = (point_leaf[deep] - n0) * W + scan_id[deep]
+                C2 = _moment_bincount(body[deep], seg2, len(kidx) * W)
+                leaf_C.append(C2.reshape(len(kidx), W, 4, 4))
+                leaf_center.append(sub.leaf_center[kidx])
+                leaf_layer.append(np.asarray(sub.leaf_layer[kidx]))
+                leaf_dec.append(sub.leaf_decision[kidx])
+
+        if leaf_C:
+            C_all = np.concatenate(leaf_C, 0)
+            centers_all = np.concatenate(leaf_center, 0)
+            layers_all = np.concatenate(leaf_layer)
+            dec_all = np.concatenate(leaf_dec)
+        else:
+            C_all = np.zeros((0, W, 4, 4), self.dtype)
+            centers_all = np.zeros((0, 3), self.dtype)
+            layers_all = np.zeros((0,), np.int64)
+            dec_all = np.zeros((0,), self.dtype)
+        return _assemble(C_all, centers_all, layers_all, dec_all,
+                         point_leaf, scan_id, W, cfg, self.dtype, pad_to,
+                         weighting)

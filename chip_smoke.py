@@ -128,13 +128,36 @@ failure raises and the script exits non-zero:
                peak RSS; its large solve's first iterations on the same
                windowed factors card against CPU; (f) the import check
                again, at the end
+ 11. slice 8 - (a) the NEES experiment at the reference's consistency
+               launch size: make_scene at NEES_SCANS=101 scans, 1 m
+               voxels, noise-free, pose 0 exact; consistency.run_multi
+               over seeds 0..9 through backend='xla' (f64) and 'packed'
+               (f32, every launch count set to 0 just before and read
+               just after: csum and rows launched), each with the JAX
+               package's bars (per-seed ratio, rotation error, Rcov
+               finite with a positive diagonal, 2/3-sigma coverage; the
+               per-pose band on the f64 run; the translation error
+               against the RMS its Rcov predicts), the f32 mean ratio
+               within 0.05 of f64's; run(streaming=True) for seed 0
+               against the batch map; seed 0 in f64 on the plain CPU
+               path against the card; (b) the host hierarchy on
+               scripts/hba_demo.make_corridor(400)'s scene (copied here
+               in numpy), beside its flat f32 solve: the polished
+               hierarchy's RMSEs at most 1/5 of the start's and its
+               rotation RMSE not above the flat solve's, the JAX
+               package's record printed beside; a W=48 cut card vs CPU
+               (the same blocks, poses within 1e-5); (c) faults C7 and
+               C8: the one-pass bf16 product against its plain version,
+               a hybrid solve at hess_precision='bf16', optimize_poses'
+               defaults on the card and the CPU
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
 kernels' Htilde, B7's f32 Csum on the scene), `launches` counts the
 launches in the run of the kernel's own path (phase 9's realworld.run for
 csum and rows, with phase 6's optimize_poses count beside it as
-`launches_optimize_poses`; phase 7 for B4-B6, phase 8 (b) for B7), and
+`launches_optimize_poses` and phase 11's packed NEES run_multi as
+`launches_nees_packed`; phase 7 for B4-B6, phase 8 (b) for B7), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
 "random_W256_G11520", their errors on the random moments of phase 4;
@@ -1569,6 +1592,396 @@ def slice7(args, dev, card, counters, f, f_cpu, R0t, p0t):
 
 
 # --------------------------------------------------------------------------
+# phase 11: slice 8
+# --------------------------------------------------------------------------
+
+# (a) the NEES experiment at the reference's launch size
+# (ConsistencyConfig's defaults, balm_tpu/pipelines/consistency.py:37-61):
+# 101 scans of make_scene at 1 m voxels, noise-free (the variant gates
+# need exact planes; corrupt_and_rebuild adds pnoise), seeds 0..9
+NEES_SCANS = 101
+NEES_SEEDS = tuple(range(10))
+# the JAX package's bars (tests/test_consistency_pipeline.py), but the
+# translation error's: its 0.02 m (:23, the reference dataset at 40
+# scans) is printed, and the gate is the error against the RMS that the
+# run's own Rcov predicts.  On this 200 m tube of 0.8 m patches with
+# 2 cm point noise the consistent estimator's translation RMS error is
+# 0.016-0.056 m per seed at a mean NEES ratio of 1.012 (this script on
+# an NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6)
+NEES_RATIO = (0.6, 1.5)
+NEES_ROT_DEG = 0.1
+NEES_TRANS_JAX_M = 0.02
+NEES_TRANS_VS_PRED = 3.0
+NEES_COVERAGE = {"frac_within_3sigma": 0.97, "frac_within_2sigma": 0.90}
+NEES_F32_VS_F64 = 0.05
+NEES_STREAM_REL = 1e-3
+NEES_CPU_REL = 1e-6
+# (b) the hierarchy on scripts/hba_demo.make_corridor(400, seed=1)'s
+# scene (577,840 points), started from perturb_drift(seed=2, rot_deg=0.5,
+# trans=0.04); the JAX package's quality record
+# (artifacts/hba_scale_w400.json), printed beside the card's, not gated
+HBA_W = 400
+HBA_POINTS = 577840
+HBA_RECORD = {"flat": (0.06146831153492767, 0.024238886600471642),
+              "hierarchical_polished": (0.043045638217086374,
+                                        0.012474403403342582)}
+HBA_CUT = 48
+HBA_CUT_TOL = 1e-5
+
+
+def make_hba_corridor(W, seed=0, pts_per=80):
+    """scripts/hba_demo.make_corridor in numpy and the port's lie (that
+    script imports jax): a trajectory down a corridor of planes, the same
+    random draws in the same order."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    R = np.zeros((W, 3, 3))
+    p = np.zeros((W, 3))
+    R[0] = np.eye(3)
+    for i in range(1, W):
+        dw = rng.normal(0, 0.008, 3)
+        R[i] = R[i - 1] @ lie.so3_exp(torch.as_tensor(dw)).numpy()
+        p[i] = p[i - 1] + np.array([0.15, 0, 0]) + rng.normal(0, 0.01, 3)
+    length = 0.15 * W + 4
+    n_planes = int(length) * 2 + 20
+    centers = np.stack([
+        rng.uniform(-2, length, n_planes),
+        rng.choice([-1.5, 1.5], n_planes) + rng.uniform(-0.2, 0.2, n_planes),
+        rng.uniform(-1, 1, n_planes),
+    ], -1)
+    centers = np.floor(centers) + 0.5
+    axes = rng.integers(0, 3, n_planes)
+    scans = []
+    for w in range(W):
+        pts = []
+        for g in range(n_planes):
+            if abs(centers[g, 0] - p[w, 0]) > 4.0:
+                continue
+            uv = rng.uniform(-0.45, 0.45, size=(pts_per, 2))
+            th = rng.normal(0, 0.004, size=(pts_per, 1))
+            local = np.concatenate([uv, th], -1)
+            perm = np.roll(np.arange(3), axes[g] + 1)
+            world = local[:, perm] + centers[g]
+            pts.append((world - p[w]) @ R[w])
+        scans.append(np.concatenate(pts) if pts else np.zeros((0, 3)))
+    return R, p, scans
+
+
+def perturb_drift(R, p, seed, rot_deg=0.6, trans=0.05):
+    """tests/test_hierarchical.perturb_drift in numpy and the port's lie."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    W = len(R)
+    drot = rng.normal(0, rot_deg / 57.3 / np.sqrt(3), size=(W, 3))
+    dtra = rng.normal(0, trans / np.sqrt(3), size=(W, 3))
+    dR = lie.so3_exp(torch.as_tensor(drot)).numpy()
+    return np.einsum("wab,wbc->wac", R, dR), p + dtra
+
+
+def nees_gates(name, out, per_pose):
+    """The JAX package's bars on one run_multi output; raises.  The
+    per-pose band (tests/test_consistency_pipeline.py:51) is the bar of
+    the JAX package's f64 run_multi: with per_pose False it is printed,
+    not held."""
+    lo, hi = NEES_RATIO
+    for r in out["per_seed"]:
+        if not (lo < r["ratio"] < hi and r["rcov_ok"]
+                and r["err_rot_rms_deg"] < NEES_ROT_DEG
+                and r["err_trans_rms_m"]
+                <= NEES_TRANS_VS_PRED * r["pred_trans_rms_m"]):
+            raise AssertionError(f"NEES {name} seed {r['seed']}: {r}")
+    n_jax = sum(r["err_trans_rms_m"] < NEES_TRANS_JAX_M
+                for r in out["per_seed"])
+    log(f"  {name}: translation RMS error below the JAX package's "
+        f"{NEES_TRANS_JAX_M} m (not gated) in {n_jax} of "
+        f"{len(out['per_seed'])} seeds")
+    band = out["nees_pose_band_3sigma"]
+    pr = np.asarray(out["nees_pose_mean_ratio"])
+    n_out = int(np.sum((pr < band[0]) | (pr > band[1])))
+    log(f"  {name}: poses outside the 3-sigma per-pose band {band}: "
+        f"{n_out} of {len(pr)}{'' if per_pose else ' (not gated)'}")
+    if per_pose and n_out > 1:
+        raise AssertionError(f"NEES {name}: {n_out} poses outside the band")
+    for k, v in NEES_COVERAGE.items():
+        if not out[k] >= v:
+            raise AssertionError(f"NEES {name}: {k} {out[k]} < {v}")
+
+
+def nees_phase(card, counters, dev):
+    """Phase 11 (a): consistency.run_multi through 'xla' (f64) and
+    'packed' (f32) on the card, run(streaming=True) for seed 0, and
+    seed 0 in f64 on the plain CPU path."""
+    import dataclasses
+
+    import torch
+
+    from balm_tpu_torch.pipelines import consistency
+
+    rec = {}
+    R, p, scans = make_scene(NEES_SCANS, 0, voxel=1.0, sigma=0.0)
+    scene = (R, p, scans)
+    n_pts = sum(len(s) for s in scans)
+    log(f"  (a) NEES: {NEES_SCANS} scans, {n_pts} points, noise-free, pose "
+        f"0 exact ({np.abs(R[0] - np.eye(3)).max():.1e}, "
+        f"{np.abs(p[0]).max():.1e}); ConsistencyConfig's defaults")
+    cfg = consistency.ConsistencyConfig(num_scans=NEES_SCANS)
+    outs = {}
+    for backend in ("xla", "packed"):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = consistency.run_multi(
+            dataclasses.replace(cfg, backend=backend), seeds=NEES_SEEDS,
+            scans_override=scene, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        outs[backend] = out
+        log(f"  run_multi({backend}): {out['num_planes']} planes, mean "
+            f"ratio {out['mean_ratio']:.6f} (sd {out['sd_ratio']:.4f}, "
+            f"theory sd of the mean {out['sd_theory_of_mean']:.4f}), "
+            f"expected NEES {out['expected']}, frac 3/2 sigma "
+            f"{out['frac_within_3sigma']:.4f} / "
+            f"{out['frac_within_2sigma']:.4f}, {wall:.2f} s wall (host "
+            f"clock, prepare included) on {card}; launches {launches}")
+        for r in out["per_seed"]:
+            log(f"    seed {r['seed']}: ratio {r['ratio']:.6f}, iters "
+                f"{r['iters']}, RMS error rot {r['err_rot_rms_deg']:.6f} "
+                f"deg (Rcov predicts {r['pred_rot_rms_deg']:.6f}), trans "
+                f"{r['err_trans_rms_m']:.6f} m (Rcov predicts "
+                f"{r['pred_trans_rms_m']:.6f}), {r['seconds']:.3f} s "
+                f"(host clock) on {card}")
+        nees_gates(backend, out, per_pose=backend == "xla")
+        rec[backend] = {
+            "planes": out["num_planes"], "mean_ratio": out["mean_ratio"],
+            "ratios": out["ratios"], "wall_s": wall,
+            "seconds": [r["seconds"] for r in out["per_seed"]],
+            "iters": [r["iters"] for r in out["per_seed"]],
+            "frac_within_3sigma": out["frac_within_3sigma"],
+            "frac_within_2sigma": out["frac_within_2sigma"],
+            "launches": launches}
+    if not (rec["packed"]["launches"]["csum"] > 0
+            and rec["packed"]["launches"]["rows"] > 0):
+        raise AssertionError("the packed NEES run launched no csum / rows")
+    d = abs(outs["packed"]["mean_ratio"] - outs["xla"]["mean_ratio"])
+    log(f"  f32 packed vs f64 mean ratio: {d:.6f} (tol {NEES_F32_VS_F64})")
+    if not d < NEES_F32_VS_F64:
+        raise AssertionError(f"packed mean ratio off the f64 one by {d}")
+
+    nees0 = outs["xla"]["nees"][0]
+    t0 = time.perf_counter()
+    st = consistency.run(dataclasses.replace(cfg, seed=0, streaming=True),
+                         scans_override=scene, device=dev)
+    t_st = time.perf_counter() - t0
+    log(f"  run(streaming=True) seed 0: {st['num_planes']} planes, NEES "
+        f"{st['nees']:.6f}, {t_st:.2f} s (host clock) on {card}")
+    if st["num_planes"] != outs["xla"]["num_planes"]:
+        raise AssertionError("streaming and batch plane counts differ")
+    check_rel("NEES streaming vs batch, seed 0", st["nees"], nees0,
+              NEES_STREAM_REL)
+    t0 = time.perf_counter()
+    cpu = consistency.run(dataclasses.replace(cfg, seed=0),
+                          scans_override=scene, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    log(f"  seed 0 f64 on the plain CPU path: {t_cpu:.2f} s (host clock)")
+    check_rel("NEES card vs CPU, seed 0, f64", nees0, cpu["nees"],
+              NEES_CPU_REL)
+    rec["streaming_s"] = t_st
+    rec["cpu_seed0_s"] = t_cpu
+    return rec
+
+
+def hba_phase(card, dev):
+    """Phase 11 (b): the host hierarchy on the W=400 corridor, beside the
+    flat 10-iteration f32 solve of scripts/hba_demo.py:90-96, then a
+    W=HBA_CUT cut of it card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.pipelines import hierarchical
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.voxel import grid
+
+    rec = {}
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_hba_corridor(HBA_W, seed=1)
+    R0, p0 = perturb_drift(R_gt, p_gt, seed=2, rot_deg=0.5, trans=0.04)
+    n_pts = int(sum(len(s) for s in scans))
+    log(f"  (b) hierarchy: W={HBA_W}, {n_pts} points (scene "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if n_pts != HBA_POINTS:
+        raise AssertionError(f"the corridor has {n_pts} points, the JAX "
+                             f"package's {HBA_POINTS}")
+    deg = lambda r: (r[0] * 57.3, r[1])
+    rs0 = deg(rsme(R0, p0, R_gt, p_gt))
+
+    vcfg = VoxelConfig(voxel_size=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vres = grid.voxelize(list(scans), R0, p0, vcfg, dtype=np.float64)
+    f32 = Fmod.factors_from_numpy(Fmod.recenter_bodies(vres.factors),
+                                  device=dev, dtype=torch.float32)
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    out = lm.damping_iter(
+        T(R0), T(p0), f32,
+        SolverConfig(max_iters=10, u_init=0.01, min_planes_per_pose=1),
+        centered=True)
+    torch.cuda.synchronize()
+    t_flat = time.perf_counter() - t0
+    rs_flat = deg(rsme(out.R.double().cpu().numpy(),
+                       out.p.double().cpu().numpy(), R_gt, p_gt))
+    hkw = dict(block=20, stride=16, voxel=vcfg,
+               top_voxel=VoxelConfig(voxel_size=1.0, min_observers=2))
+    runs = {}
+    for name, polish in (("hierarchical", False),
+                         ("hierarchical_polished", True)):
+        cfg = hierarchical.HierarchicalConfig(
+            polish=polish,
+            polish_solver=SolverConfig(max_iters=5, u_init=0.01,
+                                       min_planes_per_pose=1), **hkw)
+        t0 = time.perf_counter()
+        Rh, ph, info = hierarchical.run(scans, R0, p0, cfg, device=dev)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, deg(rsme(Rh, ph, R_gt, p_gt)),
+                      info)
+    log(f"  start: RMSE {rs0[0]:.4f} deg {rs0[1]:.4f} m")
+    log(f"  flat (f32, 10 iterations, {vres.num_planes} planes): "
+        f"{t_flat:.2f} s wall (host clock), RMSE {rs_flat[0]:.4f} deg "
+        f"{rs_flat[1]:.4f} m on {card}; the JAX package's record "
+        f"{HBA_RECORD['flat'][0]:.4f} deg {HBA_RECORD['flat'][1]:.4f} m")
+    for name, (t, rs, info) in runs.items():
+        ref = HBA_RECORD.get(name)
+        ref_txt = (f"; the JAX package's record {ref[0]:.4f} deg "
+                   f"{ref[1]:.4f} m" if ref else "")
+        log(f"  {name}: {t:.2f} s wall (host clock), {info['n_blocks']} "
+            f"blocks, cycles kept {len(info.get('cycle_residuals', []))} "
+            f"(reverted {info.get('cycles_reverted', 0)}), RMSE "
+            f"{rs[0]:.4f} deg {rs[1]:.4f} m on {card}{ref_txt}")
+        rec[name] = {"wall_s": t, "rmse_deg_m": list(rs),
+                     "n_blocks": info["n_blocks"]}
+    rec["flat"] = {"wall_s": t_flat, "rmse_deg_m": list(rs_flat),
+                   "planes": vres.num_planes}
+    rec["start_rmse_deg_m"] = list(rs0)
+    rs_h = runs["hierarchical_polished"][1]
+    if not (rs_h[0] <= rs0[0] / 5 and rs_h[1] <= rs0[1] / 5):
+        raise AssertionError(f"hierarchy RMSE {rs_h} above 1/5 of {rs0}")
+    if not rs_h[0] <= rs_flat[0]:
+        raise AssertionError(f"hierarchy rotation RMSE {rs_h[0]} above the "
+                             f"flat solve's {rs_flat[0]}")
+
+    # a W=HBA_CUT cut, polish off, one cycle: card against CPU
+    cut = dataclasses.replace(
+        hierarchical.HierarchicalConfig(**hkw), polish=False, cycles=1)
+    got = {}
+    for where, d in (("cuda", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        got[where] = hierarchical.run(scans[:HBA_CUT], R0[:HBA_CUT],
+                                      p0[:HBA_CUT], cut, device=d)
+        log(f"  W={HBA_CUT} cut on {where}: "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+    (Rc, pc, ic), (Rh, ph, ih) = got["cuda"], got["cpu"]
+    if ic["blocks"] != ih["blocks"]:
+        raise AssertionError(f"block plane counts differ: {ic['blocks']} "
+                             f"vs {ih['blocks']}")
+    dpose = max(float(np.max(np.abs(Rc - Rh))),
+                float(np.max(np.abs(pc - ph))))
+    planes = [b["planes"] for b in ic["blocks"]]
+    log(f"  W={HBA_CUT} cut card vs CPU: block planes {planes} alike, "
+        f"poses within {dpose:.3e} (tol {HBA_CUT_TOL:.0e})")
+    if not dpose <= HBA_CUT_TOL:
+        raise AssertionError(f"W={HBA_CUT} cut card vs CPU: {dpose}")
+    rec["cut_pose_diff"] = dpose
+    return rec
+
+
+def faults_phase(card, f, pk, R0t, p0t, ref):
+    """Phase 11 (c): C7 and C8 on the card.  C7: hess_precision='bf16' on
+    the xla/hybrid product (one bf16 torch.mm with an fp32 result) held
+    against its plain version on the same rows (rounded to bf16, an fp32
+    product), both timed, and the hybrid solve at 'bf16' beside phase 6's
+    at 'high'; C8: optimize_poses' defaults on the card."""
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import packed as packed_mod
+    from balm_tpu_torch.ops import packed_evaluate as pe
+    from balm_tpu_torch.ops.precision import fp32_matmul
+    from balm_tpu_torch.solver import lm
+
+    rec = {}
+    pose = packed_mod.pad_poses(R0t, p0t, pk.wp)
+    csum = pe.csum_packed(pose, pk.mom, pk.cen, pk.cfix)
+    _, aux = pe._aux_from_csum(csum, pk, 1e-9)
+    rows = pe.rows_packed(pose, pk.mom, pk.cen, aux)[0]
+    M = rows.view(3, -1, pk.gp)
+    H1 = pe._bf16_product(M)
+    A = M.to(torch.bfloat16).to(torch.float32)
+    with fp32_matmul():
+        H1p = sum(A[k] @ A[k].T for k in range(3))
+    rel = float((H1 - H1p).abs().max() / H1p.abs().max())
+    H3 = pe._jw_product(rows)
+    one = float((H1 - H3).abs().max() / H3.abs().max())
+    ms1 = time_ms(lambda: pe._bf16_product(M), iters=10)
+    ms3 = time_ms(lambda: pe._jw_product(rows), iters=10)
+    log(f"  (c) C7: the one-pass bf16 product against its plain version "
+        f"(rows rounded to bf16, fp32 product): rel {rel:.3e} (tol "
+        f"{TOL_HESS['H']:.0e}); against the exact fp32 product {one:.3e}; "
+        f"{ms1:.4f} ms vs the three fp32 torch.mm {ms3:.4f} ms at "
+        f"Wp={pk.wp} Gp={pk.gp} on {card}")
+    if not rel <= TOL_HESS["H"]:
+        raise AssertionError(f"bf16 product vs plain: {rel}")
+    del rows, M, A, H1, H1p, H3
+    out = lm.damping_iter(R0t, p0t, f, SolverConfig(), **PACKED,
+                          hess_precision="bf16")
+    log(f"  hybrid solve at hess_precision='bf16': {out.iters} iterations, "
+        f"residual {out.trace_res1[0]:.6f} -> {out.residual:.6f}; at "
+        f"'high' (phase 6): {ref.iters} iterations, -> {ref.residual:.6f}")
+    if not (np.isfinite(out.residual) and out.residual < out.trace_res1[0]):
+        raise AssertionError("the bf16 solve did not lower the residual")
+    rec["c7"] = {"rel_vs_plain": rel, "rel_vs_exact": one, "ms": ms1,
+                 "ms_exact": ms3, "iters": out.iters,
+                 "residual": out.residual}
+    Rs, ps, ss = make_scene(8, 11, pts_per_scan=3000)
+    one_it = SolverConfig(max_iters=1, min_planes_per_pose=0)
+    got = {}
+    for where in ("cuda", "cpu"):
+        _, _, info = balm_tpu_torch.optimize_poses(
+            ss, Rs, ps, voxel=VoxelConfig(voxel_size=VOXEL), solver=one_it,
+            device=where)
+        got[where] = (info["dtype"], info["backend"])
+    log(f"  C8: optimize_poses' defaults: card {got['cuda']}, CPU "
+        f"{got['cpu']}")
+    if got != {"cuda": ("float32", "packed"), "cpu": ("float64", "xla")}:
+        raise AssertionError(f"optimize_poses' defaults: {got}")
+    rec["c8"] = got
+    return rec
+
+
+def slice8(card, counters, dev, f, pk, R0t, p0t, ref):
+    """Phase 11: the NEES experiment, the host hierarchy, and faults C7
+    and C8.  f, pk: phase 6's f32 factors and their pack on the card,
+    R0t, p0t its start, ref its hybrid solve."""
+    t_phase = time.perf_counter()
+    rec = {"nees": nees_phase(card, counters, dev),
+           "hierarchy": hba_phase(card, dev),
+           "faults": faults_phase(card, f, pk, R0t, p0t, ref)}
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {rec['seconds']:.1f} s on {card}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1578,7 +1991,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/10 device")
+    log("phase 1/11 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -1605,7 +2018,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/10 build")
+    log("phase 2/11 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -1614,7 +2027,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/10 scene")
+    log("phase 3/11 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -1631,7 +2044,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/10 kernels vs plain")
+    log("phase 4/11 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -1728,12 +2141,13 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/10 small slice: card vs plain CPU path")
+    log("phase 5/11 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
     _, _, ih = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg,
-                                             device="cpu")
+                                             dtype="float32",
+                                             backend="packed", device="cpu")
     log(f"  cuda: planes {ic['num_planes']} iters {ic['iters']} residual "
         f"{ic['residual_initial']:.6f} -> {ic['residual']:.6f}")
     log(f"  cpu:  planes {ih['num_planes']} iters {ih['iters']} residual "
@@ -1746,7 +2160,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/10 slice: optimize_poses on the card")
+    log("phase 6/11 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -1824,7 +2238,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/10 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/11 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -1862,18 +2276,23 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/10 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/11 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
 
-    log("phase 9/10 slice 6: benchmark_realworld on the card")
+    log("phase 9/11 slice 6: benchmark_realworld on the card")
     rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
                   counters)
     log(f"  phase9: {json.dumps(rec9)}")
 
-    log("phase 10/10 slice 7: large windows and pose-graph edges on the card")
+    log("phase 10/11 slice 7: large windows and pose-graph edges on the card")
     rec10 = slice7(args, dev, card, counters, f, f_cpu, R0t, p0t)
     log(f"  phase10: {json.dumps(rec10)}")
+
+    log("phase 11/11 slice 8: the NEES experiment and the host hierarchy "
+        "on the card")
+    rec11 = slice8(card, counters, dev, f, pk, R0t, p0t, ref)
+    log(f"  phase11: {json.dumps(rec11)}")
     # every module of the port is imported by now: still no jax, no
     # balm_tpu, no tests
     bad = [m for m in sys.modules
@@ -1907,6 +2326,8 @@ def main(argv=None) -> int:
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
         if name in ("csum", "rows"):
             rec["launches_optimize_poses"] = launches[name]
+            rec["launches_nees_packed"] = \
+                rec11["nees"]["packed"]["launches"][name]
         if name == "hess_v2":
             rec["by_split"] = {
                 sp: {"ms": timing[k][0], "plain_ms": timing[k][1],

@@ -185,11 +185,12 @@ def test_optimize_poses_large_threshold_matches_jax():
 
 def test_optimize_poses_dispatch():
     """'auto' as in JAX: 'large' above large_threshold scans, else
-    'packed' in float32 and 'xla' in float64 (the port's accelerator
-    choice; JAX takes 'packed' on its accelerator)."""
+    'packed' in float32 on the card (JAX: on its accelerator) and 'xla'
+    otherwise — so 'xla' at either dtype on the CPU, as JAX off the TPU
+    (tests/test_torch_slice.py::test_optimize_poses_cpu_defaults_match_jax)."""
     R_gt, p_gt, scans = make_long_scene(W=5, n_planes=12, seed=45)
     one = SolverConfig(max_iters=1, min_planes_per_pose=0)
-    for dtype, thr, want in (("float32", 600, "packed"),
+    for dtype, thr, want in (("float32", 600, "xla"),
                              ("float64", 600, "xla"),
                              ("float32", 4, "large"),
                              ("float64", 5, "xla")):

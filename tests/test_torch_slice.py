@@ -82,6 +82,7 @@ def test_optimize_poses_matches_jax():
                                          dtype="float32")
     Rt, pt, it = balm_tpu_torch.optimize_poses(scans, R0, p0,
                                                backend="packed",
+                                               dtype="float32",
                                                device="cpu")
     assert it["status"] == ij["status"] == "ok"
     assert it["num_planes"] == ij["num_planes"]
@@ -110,10 +111,12 @@ def test_smoke_scene_matches_jax():
     Rj, pj, ij = balm_tpu.optimize_poses(
         scans, R0, p0, voxel=JVoxelConfig(voxel_size=chip_smoke.VOXEL),
         backend="packed", dtype="float32")
+    # the card's defaults (float32, 'packed'), asked for explicitly: off
+    # the card dtype=None takes float64 and 'xla', as JAX off the TPU
     Rt, pt, it = balm_tpu_torch.optimize_poses(
         scans, R0, p0, voxel=VoxelConfig(voxel_size=chip_smoke.VOXEL),
-        device="cpu")
-    assert it["backend"] == "packed"          # what backend='auto' takes
+        dtype="float32", backend="packed", device="cpu")
+    assert it["backend"] == "packed" and it["dtype"] == "float32"
     assert it["num_planes"] == ij["num_planes"]
     assert it["iters"] == ij["iters"] > 0
     assert abs(it["residual_initial"] - ij["residual_initial"]) \
@@ -173,8 +176,9 @@ def test_unported_paths_raise():
         tgrid.voxelize(scans, R_gt, p_gt, VoxelConfig()).factors))
     R = torch.tensor(R_gt, dtype=torch.float32)
     p = torch.tensor(p_gt, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.damping_iter(R, p, f, hess_precision="bf16", centered=True,
+    # hess_precision='bf16' runs now (test_hess_precision_bf16_*)
+    with pytest.raises(ValueError, match="unknown hess_precision"):
+        tlm.damping_iter(R, p, f, hess_precision="fp8", centered=True,
                          backend="packed")
     # the large-window solve and edges are ported (solver/large.py,
     # ops/pose_graph.py); damping_iter refuses what JAX's cannot do
@@ -184,6 +188,113 @@ def test_unported_paths_raise():
         tlm.damping_iter(R, p, f, edges=object(), update="right")
     with pytest.raises(ValueError, match="unknown packed_impl"):
         tlm.damping_iter(R, p, f, packed_impl="pallas4")
+
+
+@pytest.mark.parametrize("dtype", [None, "float32", "float64"])
+def test_optimize_poses_cpu_defaults_match_jax(dtype):
+    """The dtype and backend rule off the card is the JAX package's off
+    the TPU: dtype None takes float64 (x64 on), 'auto' takes 'xla' at
+    either dtype; the card takes the TPU's float32 and 'packed'."""
+    R_gt, p_gt, scans = make_long_scene(W=5, n_planes=12, seed=45)
+    one = dict(max_iters=1, min_planes_per_pose=0)
+    _, _, ij = balm_tpu.optimize_poses(scans, R_gt, p_gt, dtype=dtype,
+                                       solver=JSolverConfig(**one))
+    _, _, it = balm_tpu_torch.optimize_poses(scans, R_gt, p_gt, dtype=dtype,
+                                             solver=SolverConfig(**one),
+                                             device="cpu")
+    assert (it["dtype"], it["backend"]) == (ij["dtype"], ij["backend"])
+    assert it["backend"] == "xla"
+    assert it["dtype"] == (dtype or "float64")
+
+
+def _bf16_problem():
+    """A packed problem at trial poses, JAX's and the port's inputs."""
+    from test_torch_kernels import CASES, _jax_inputs
+
+    return _jax_inputs(CASES[3])
+
+
+def test_hess_precision_bf16_matches_jax():
+    """hess_precision='bf16' on the xla/hybrid/chunked product: one bf16
+    pass with fp32 accumulation (the TPU's Precision.DEFAULT).  JAX on
+    the CPU computes DEFAULT in full f32, so the reference is JAX's rank
+    rows rounded to bf16 and multiplied in f64: within 1e-5 of max|H|."""
+    from balm_tpu.ops import pallas_evaluate as jpe
+    from balm_tpu_torch.ops import packed_evaluate as tpe
+
+    R32, p32, f32, packed, pose = _bf16_problem()
+    csum = jpe.csum_packed_xla(pose, packed.mom, packed.cen, packed.cfix)
+    _, aux = jpe._aux_from_csum(csum, packed, 1e-9)
+    rows, _, _ = jpe._rows_channels_xla(pose, packed.mom, packed.cen, aux)
+    Wp, Gp = packed.wp, packed.gp
+    M = np.stack([np.stack([np.asarray(rows[j][k]) for j in range(6)])
+                  for k in range(3)])                       # (3, 6, Wp, Gp)
+    Mb = np.asarray(jnp.asarray(M).astype(jnp.bfloat16).astype(jnp.float64))
+    Mb = Mb.reshape(3, 6 * Wp, Gp)
+    H_ref = sum(Mb[k] @ Mb[k].T for k in range(3))          # (j, w)-major
+    H_exact = sum(M.reshape(3, 6 * Wp, Gp)[k].astype(np.float64)
+                  @ M.reshape(3, 6 * Wp, Gp)[k].T.astype(np.float64)
+                  for k in range(3))
+    T = lambda x: torch.tensor(np.asarray(x))
+    args = (T(pose), T(packed.mom), T(packed.cen), T(aux))
+    Hh, Jh, Dh = tpe.hess_packed_hybrid(*args, hess_precision="bf16")
+    scale = np.max(np.abs(H_ref))
+    assert np.max(np.abs(Hh.numpy() - H_ref)) <= 1e-5 * scale
+    # one bf16 pass is not the exact product: ~1e-3 off it
+    assert np.max(np.abs(Hh.numpy() - H_exact)) > 1e-4 * scale
+    # the (w, j)-major xla form is the same product, permuted
+    Hx, Jx, Dx = tpe.hess_packed_xla(*args, hess_precision="bf16")
+    perm = Hh.view(6, Wp, 6, Wp).permute(1, 0, 3, 2).reshape(6 * Wp, -1)
+    assert torch.equal(Hx, perm)
+    # J and D stay exact f32
+    _, J0, D0 = tpe.hess_packed_hybrid(*args)
+    assert torch.equal(Jh, J0) and torch.equal(Dh, D0)
+
+
+def test_hess_precision_bf16_every_impl():
+    """'bf16' runs for every impl as JAX maps it: pallas2 and pallas3 take
+    split 'bf16x3' (their 'high' results), pallas stays exact (its
+    default), xla, hybrid and the chunked evaluate take the one-pass
+    product; each is the evaluate at 'bf16' within 1e-3 of the exact one
+    (the one pass's error), and damping_iter runs with it."""
+    from balm_tpu_torch.ops import packed as tpk
+    from balm_tpu_torch.ops import packed_evaluate as tpe
+
+    R32, p32, f32, _, _ = _bf16_problem()
+    f = tF.factors_from_numpy([np.asarray(x) for x in f32])
+    pk = tpk.pack_factors(f)
+    R, p = torch.tensor(np.asarray(R32)), torch.tensor(np.asarray(p32))
+    exact = tpe.evaluate_packed(R, p, pk, impl="xla")
+    H0 = exact[2]
+    for impl, same_as in (("pallas2", "high"), ("pallas3", "high"),
+                          ("pallas", None)):
+        got = tpe.evaluate_packed(R, p, pk, impl=impl, hess_precision="bf16")
+        ref = tpe.evaluate_packed(R, p, pk, impl=impl,
+                                  hess_precision=same_as)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), impl
+    one = {}
+    for impl in ("xla", "hybrid"):
+        one[impl] = tpe.evaluate_packed(R, p, pk, impl=impl,
+                                        hess_precision="bf16")
+    pk64 = tpk.pad_planes(pk, 64)
+    one["chunked"] = tpe.evaluate_packed_chunked(
+        R, p, pk64, n_chunks=pk64.gp // 64, hess_precision="bf16")
+    scale = float(H0.abs().max())
+    for name, (res, J, H) in one.items():
+        assert abs(float(res - exact[0])) <= 1e-6 * abs(float(exact[0])), \
+            name
+        assert float((J - exact[1]).abs().max()) <= 1e-6 * float(
+            exact[1].abs().max()), name
+        err = float((H - H0).abs().max())
+        assert 1e-5 * scale < err <= 1e-2 * scale, (name, err / scale)
+    assert torch.allclose(one["xla"][2], one["hybrid"][2], rtol=0,
+                          atol=1e-6 * scale)
+    cfg = SolverConfig(max_iters=3, min_planes_per_pose=0)
+    for kw in (dict(packed_impl="hybrid"), dict(packed_impl="xla"),
+               dict(packed_impl="pallas2"), dict(chunk_planes=64)):
+        res = tlm.damping_iter(R, p, f, cfg, centered=True, backend="packed",
+                               hess_precision="bf16", **kw)
+        assert res.iters > 0 and np.isfinite(res.residual), kw
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
