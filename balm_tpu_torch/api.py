@@ -17,7 +17,8 @@ BALM2::damping_iter):
   3. the solve:
      * backend='packed' (the default on the card up to large_threshold
        scans, the JAX package's accelerator choice): solver/lm.
-       damping_iter with the hybrid packed evaluate, the `csum` and
+       damping_iter with the packed evaluate (packed_impl 'auto':
+       'hybrid' from 256 scans, 'xla' below), the `csum` and
        `rows` CUDA kernels on 'cuda', their plain PyTorch versions on
        'cpu'
      * backend='xla' (the default off the card up to large_threshold):
@@ -111,8 +112,8 @@ def optimize_poses(
     vres = grid.voxelize(list(scans), R, p, voxel, dtype=np.float64)
     t_vox = time.perf_counter() - t0
     info = {"num_planes": vres.num_planes, "backend": backend,
-            "evaluate": {"packed": "hybrid", "xla": "factors",
-                         "large": "windowed"}[backend],
+            "evaluate": {"packed": lm.auto_impl(len(scans)),
+                         "xla": "factors", "large": "windowed"}[backend],
             "dtype": dtype, "device": str(device)}
     if vres.num_planes == 0:
         info["status"] = "no_planes"

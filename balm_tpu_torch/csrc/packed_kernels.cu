@@ -35,6 +35,18 @@
 // partials over plane tiles in a fixed order — no atomics, so two runs
 // give bit-identical J, D and hence the same LM trajectory.
 //
+// Batched launches (balm_*_packed_batched): B problems of one shape
+// stacked on a leading axis, pose (B, Wp, 12), mom (B, Wp, 10, Gp), cen
+// (B, 3, Gp), cfix (B, 10, Gp), aux (B, 17, Gp) -> out (B, 10, Gp), rows
+// (B, 3, 6, Wp, Gp), J (B, Wp, 6), D (B, Wp, 36).  The problem index is a
+// grid dimension (csum: y, rows: z) and each block offsets its pointers
+// by it; the single-problem launches are B = 1, so both run one body.
+// They stand for the JAX package's jax.vmap of the two pallas_calls in
+// the device-batched hierarchy (balm_tpu/pipelines/hierarchical.py
+// :711-713), which gives each a batch grid axis.  At the hierarchy's
+// blocks (Wp = 16, Gp = 256) one problem fills 8 csum and 32 rows
+// blocks; the batch of B = 255 fills the card, one launch per evaluate.
+//
 // The per-element math (rows_point and its helpers) lives in
 // rows_point.cuh, shared with hess_kernels.cu (B4, B5, B6).
 //
@@ -65,6 +77,13 @@ __global__ void __launch_bounds__(kCsumBG * kCsumBW)
   __shared__ float sp[kPoseChunk * 12];
   __shared__ float red[kCsumBW][6][kCsumBG];
   __shared__ float vbs[3][kCsumBG];
+  // problem blockIdx.y of a batch of equal-shape problems (1 alone)
+  const int64_t bz = blockIdx.y;
+  pose += bz * Wp * 12;
+  mom += bz * Wp * 10 * Gp;
+  cen += bz * 3 * Gp;
+  cfix += bz * 10 * Gp;
+  out += bz * 10 * Gp;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * kCsumBG + tx;
   const int nthreads = kCsumBG * kCsumBW;
@@ -174,6 +193,14 @@ __global__ void __launch_bounds__(kRowsBG)
                 float* __restrict__ rows, float* __restrict__ partial,
                 int64_t Wp, int64_t Gp) {
   __shared__ float wsum[kRowsBG / 32][kJD];
+  // problem blockIdx.z of a batch of equal-shape problems (1 alone)
+  const int64_t bz = blockIdx.z;
+  pose += bz * Wp * 12;
+  mom += bz * Wp * 10 * Gp;
+  cen += bz * 3 * Gp;
+  aux += bz * 17 * Gp;
+  rows += bz * 18 * Wp * Gp;
+  partial += bz * Wp * gridDim.x * kJD;
   const int64_t w = blockIdx.y;
   const int64_t g = (int64_t)blockIdx.x * kRowsBG + threadIdx.x;
   const bool live = g < Gp;
@@ -210,7 +237,8 @@ __global__ void __launch_bounds__(kRowsBG)
   }
 }
 
-// J (Wp, 6), D (Wp, 36) = sum over plane tiles of the partials, in order.
+// J (Wp, 6), D (Wp, 36) = sum over plane tiles of the partials, in order
+// (a batch's J and D are (B * Wp, ...) with Wp = B * Wp here).
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ J,
                                        float* __restrict__ D, int64_t Wp,
@@ -240,16 +268,44 @@ extern "C" const char* balm_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+extern "C" int balm_csum_packed_batched(const float* pose, const float* mom,
+                                        const float* cen, const float* cfix,
+                                        float* out, int64_t B, int64_t Wp,
+                                        int64_t Gp, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(kCsumBG, kCsumBW);
+  const dim3 grid((unsigned)((Gp + kCsumBG - 1) / kCsumBG), (unsigned)B);
+  csum_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(pose, mom, cen, cfix,
+                                                         out, Wp, Gp);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int balm_csum_packed(const float* pose, const float* mom,
                                 const float* cen, const float* cfix,
                                 float* out, int64_t Wp, int64_t Gp,
                                 int device, void* stream) {
+  return balm_csum_packed_batched(pose, mom, cen, cfix, out, 1, Wp, Gp,
+                                  device, stream);
+}
+
+extern "C" int balm_rows_packed_batched(const float* pose, const float* mom,
+                                        const float* cen, const float* aux,
+                                        float* rows, float* partial, float* J,
+                                        float* D, int64_t B, int64_t Wp,
+                                        int64_t Gp, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(kCsumBG, kCsumBW);
-  const dim3 grid((unsigned)((Gp + kCsumBG - 1) / kCsumBG));
-  csum_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(pose, mom, cen, cfix,
-                                                         out, Wp, Gp);
+  const int64_t ntiles = (Gp + kRowsBG - 1) / kRowsBG;
+  const dim3 grid((unsigned)ntiles, (unsigned)Wp, (unsigned)B);
+  rows_kernel<<<grid, kRowsBG, 0, (cudaStream_t)stream>>>(
+      pose, mom, cen, aux, rows, partial, Wp, Gp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = B * Wp * kJD;
+  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
+                           (cudaStream_t)stream>>>(partial, J, D, B * Wp,
+                                                   ntiles);
   return (int)cudaGetLastError();
 }
 
@@ -258,16 +314,6 @@ extern "C" int balm_rows_packed(const float* pose, const float* mom,
                                 float* rows, float* partial, float* J,
                                 float* D, int64_t Wp, int64_t Gp,
                                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t ntiles = (Gp + kRowsBG - 1) / kRowsBG;
-  const dim3 grid((unsigned)ntiles, (unsigned)Wp);
-  rows_kernel<<<grid, kRowsBG, 0, (cudaStream_t)stream>>>(
-      pose, mom, cen, aux, rows, partial, Wp, Gp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t n = Wp * kJD;
-  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0,
-                           (cudaStream_t)stream>>>(partial, J, D, Wp, ntiles);
-  return (int)cudaGetLastError();
+  return balm_rows_packed_batched(pose, mom, cen, aux, rows, partial, J, D, 1,
+                                  Wp, Gp, device, stream);
 }

@@ -1,8 +1,8 @@
 """Build and bind the CUDA kernels of csrc/ (B1 and B2 in
-packed_kernels.cu, B4 and B6 in hess_kernels.cu, B5 in
-hess_v3_kernels.cu, all three including the shared per-element math of
-rows_point.cuh, the last two the Hopper helpers of sm90.cuh, and B7 in
-moments_kernels.cu).
+packed_kernels.cu, single and batched launches, B4 and B6 in
+hess_kernels.cu, B5 in hess_v3_kernels.cu, all three including the
+shared per-element math of rows_point.cuh, the last two the Hopper
+helpers of sm90.cuh, and B7 in moments_kernels.cu).
 
 One `nvcc` process per source, all started together, compiles it to an
 object; one more links them into one shared library with a plain C
@@ -148,6 +148,12 @@ def lib():
         h.balm_rows_packed.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                        i64, i64, cint, vp]
         h.balm_rows_packed.restype = cint
+        h.balm_csum_packed_batched.argtypes = [vp] * 5 + [i64, i64, i64,
+                                                         cint, vp]
+        h.balm_csum_packed_batched.restype = cint
+        h.balm_rows_packed_batched.argtypes = [vp] * 8 + [i64, i64, i64,
+                                                         cint, vp]
+        h.balm_rows_packed_batched.restype = cint
         h.balm_rows_block_planes.argtypes = []
         h.balm_rows_block_planes.restype = cint
         h.balm_hess_splits.argtypes = [i64, i64, cint]

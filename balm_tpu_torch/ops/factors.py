@@ -98,9 +98,10 @@ class PlaneFactors(NamedTuple):
 
     def planes_per_pose(self):
         """(W,) number of valid planes observed by each pose
-        (reference degeneracy guard, bavoxel.hpp:1071-1078)."""
-        valid = (self.coe > 0)[:, None]
-        return (self.observes() & valid).sum(0)
+        (reference degeneracy guard, bavoxel.hpp:1071-1078); (B, W) for
+        factors with a leading batch axis."""
+        valid = (self.coe > 0)[..., None]
+        return (self.observes() & valid).sum(-2)
 
 
 def factors_from_numpy(fields, *, device="cpu", dtype=torch.float32):

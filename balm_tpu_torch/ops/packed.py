@@ -1,7 +1,9 @@
 """Packed channel-major factor layout for the CUDA evaluation path.
 
 Counterpart: balm_tpu/ops/packed.py (PackedFactors, pack_factors :72,
-csum_to_cov :118, pad_planes :138, pad_poses :154).  The same
+csum_to_cov :118, pad_planes :138, pad_poses :154); pack_factors_batched
+is pack_factors under the hierarchy's jax.vmap (balm_tpu/pipelines/
+hierarchical.py:711-713).  The same
 information as PlaneFactors, re-laid-out channel-major with the PLANE
 axis contiguous:
 
@@ -44,11 +46,11 @@ class PackedFactors(NamedTuple):
 
     @property
     def wp(self):
-        return self.mom.shape[0]
+        return self.mom.shape[-3]
 
     @property
     def gp(self):
-        return self.mom.shape[2]
+        return self.mom.shape[-1]
 
 
 def _sym_channels(M):
@@ -61,8 +63,9 @@ def pack_factors(f: F.PlaneFactors, *, gpad: int = GPAD,
                  wpad: int = WPAD) -> PackedFactors:
     """PlaneFactors (torch leaves, body-recentered) -> PackedFactors,
     float32 on the factors' device.  Pose-independent: call once per
-    solve."""
-    G, W = f.C.shape[:2]
+    solve.  Leading batch dims of the leaves (C (..., G, W, 4, 4)) carry
+    over to every packed tensor (pack_factors_batched)."""
+    G, W = f.C.shape[-4:-2]
     dt = torch.float32
     Gp = _round_up(max(G, 1), gpad)
     Wp = _round_up(max(W, 1), wpad)
@@ -76,11 +79,11 @@ def pack_factors(f: F.PlaneFactors, *, gpad: int = GPAD,
     P = f.C[..., :3, :3] - v[..., :, None] * v[..., None, :] / ns[..., None, None]
 
     chans = _sym_channels(P) + [b[..., 0], b[..., 1], b[..., 2], n]
-    mom = torch.stack(chans, dim=-1).permute(1, 2, 0)     # (W, 10, G)
+    mom = torch.stack(chans, dim=-1).movedim(-3, -1)      # (W, 10, G)
     mom = torch.nn.functional.pad(mom, (0, Gp - G, 0, 0, 0, Wp - W))
 
-    cen = torch.nn.functional.pad(f.centers.T, (0, Gp - G))
-    coe = torch.nn.functional.pad(f.coe[None, :], (0, Gp - G))
+    cen = torch.nn.functional.pad(f.centers.transpose(-1, -2), (0, Gp - G))
+    coe = torch.nn.functional.pad(f.coe[..., None, :], (0, Gp - G))
 
     # fixed moment: shift, then recenter about its own centroid so the
     # two-pass covariance never sees large-offset products
@@ -91,7 +94,8 @@ def pack_factors(f: F.PlaneFactors, *, gpad: int = GPAD,
     bf = vf / nfs[..., None]
     Pf = Cfs[..., :3, :3] - vf[..., :, None] * vf[..., None, :] / nfs[..., None, None]
     cfx = torch.stack(
-        _sym_channels(Pf) + [bf[..., 0], bf[..., 1], bf[..., 2], nf], dim=0)
+        _sym_channels(Pf) + [bf[..., 0], bf[..., 1], bf[..., 2], nf],
+        dim=-2)
     cfix = torch.nn.functional.pad(cfx, (0, Gp - G))
 
     return PackedFactors(mom=mom.to(dt).contiguous(),
@@ -100,14 +104,27 @@ def pack_factors(f: F.PlaneFactors, *, gpad: int = GPAD,
                          cfix=cfix.to(dt).contiguous())
 
 
+def pack_factors_batched(f: F.PlaneFactors, *, gpad: int = GPAD,
+                         wpad: int = WPAD) -> PackedFactors:
+    """B blocks' PlaneFactors stacked on a leading axis (C (B, G, W, 4,
+    4), ...) -> PackedFactors of one common (Wp, Gp): mom (B, Wp, 10,
+    Gp), cen (B, 3, Gp), coe (B, 1, Gp), cfix (B, 10, Gp); padding planes
+    at zero coe, as pack_factors (the JAX package's vmap of it)."""
+    if f.C.dim() != 5:
+        raise ValueError(f"batched factors need C (B, G, W, 4, 4), got "
+                         f"{tuple(f.C.shape)}")
+    return pack_factors(f, gpad=gpad, wpad=wpad)
+
+
 def csum_to_cov(out, coe):
-    """Moment channels (10, Gp) = [N*cov (6), vsum (3), N] ->
-    (N, Ns, valid, vbar (3, Gp), cov (Gp, 3, 3))."""
-    N = out[9]
+    """Moment channels (..., 10, Gp) = [N*cov (6), vsum (3), N] ->
+    (N, Ns, valid, vbar (..., 3, Gp), cov (..., Gp, 3, 3))."""
+    N = out[..., 9, :]
     Ns = torch.where(N > 0.5, N, 1.0)
-    valid = (N > 0.5) & (coe[0] > 0)
-    vbar = out[6:9] / Ns[None, :]
-    c = out[:6] / Ns[None, :]
+    valid = (N > 0.5) & (coe[..., 0, :] > 0)
+    vbar = out[..., 6:9, :] / Ns[..., None, :]
+    c = out[..., :6, :] / Ns[..., None, :]
+    c = [c[..., k, :] for k in range(6)]
     row0 = torch.stack([c[0], c[1], c[2]], dim=-1)
     row1 = torch.stack([c[1], c[3], c[4]], dim=-1)
     row2 = torch.stack([c[2], c[4], c[5]], dim=-1)
@@ -126,8 +143,9 @@ def pad_planes(pk: PackedFactors, multiple: int) -> PackedFactors:
 
 
 def pad_poses(R, p, Wp):
-    """(W,3,3),(W,3) -> (Wp, 12) row-major [R | t] pose channels, zero
-    rows for padding scans (never observable: their moments are zero)."""
-    W = R.shape[0]
-    pose = torch.cat([R.reshape(W, 9), p], dim=1)
+    """(..., W,3,3),(..., W,3) -> (..., Wp, 12) row-major [R | t] pose
+    channels, zero rows for padding scans (never observable: their
+    moments are zero)."""
+    W = R.shape[-3]
+    pose = torch.cat([R.reshape(*R.shape[:-2], 9), p], dim=-1)
     return torch.nn.functional.pad(pose, (0, 0, 0, Wp - W)).contiguous()

@@ -11,8 +11,15 @@ residual_only_packed (:1030), `_chunk_pk`, evaluate_packed_chunked and
 residual_only_packed_chunked (:1042-1123), hess_packed_hybrid (:1214)
 and evaluate_packed_jw (:1232).
 
-Each kernel wrapper (`csum_packed`, `rows_packed`, `hess_packed`,
-`hess_packed_v2`, `hess_pairs_v3`) takes its plain PyTorch version
+The device-batched hierarchy's evaluate (evaluate_packed_batched,
+residual_only_packed_batched) is evaluate_packed(impl='xla') under the
+JAX package's jax.vmap (balm_tpu/pipelines/hierarchical.py:711-713): B1
+and B2 with a batch grid axis (csum_packed_batched, rows_packed_batched,
+one launch each whatever the batch).
+
+Each kernel wrapper (`csum_packed`, `rows_packed`, their `_batched`
+forms, `hess_packed`, `hess_packed_v2`, `hess_pairs_v3`) takes its plain
+PyTorch version
 (`*_plain`, beside it) only for tensors on the CPU.  For CUDA tensors it
 checks dtype, shape and contiguity, launches its CUDA kernel (csrc/) on
 the current stream, counts the launch in its `launches` attribute, or
@@ -318,28 +325,116 @@ rows_packed.launches = 0
 
 
 # --------------------------------------------------------------------------
+# B1 and B2 over a batch of equal-shape problems (the hierarchy's blocks)
+# --------------------------------------------------------------------------
+
+def _batched_shapes(pose, mom):
+    if mom.dim() != 4 or mom.shape[2] != 10:
+        raise ValueError(f"mom must be (B, Wp, 10, Gp), got "
+                         f"{tuple(mom.shape)}")
+    B, Wp, _, Gp = mom.shape
+    if B == 0 or Wp == 0 or Gp == 0:
+        raise ValueError("empty batched problem (B, Wp or Gp is 0)")
+    return B, Wp, Gp
+
+
+def csum_packed_batched_plain(pose, mom, cen, cfix):
+    """Plain version of the batched `csum` launch: csum_packed_plain on
+    each problem of pose (B, Wp, 12), mom (B, Wp, 10, Gp), cen (B, 3, Gp),
+    cfix (B, 10, Gp) -> (B, 10, Gp)."""
+    return torch.stack([csum_packed_plain(*a)
+                        for a in zip(pose, mom, cen, cfix)])
+
+
+def csum_packed_batched(pose, mom, cen, cfix):
+    """B1 over a batch, one launch whatever B: (B, 10, Gp) world plane
+    moments — the CUDA `csum` kernel with the problem on a grid axis on
+    CUDA tensors, csum_packed_batched_plain on CPU tensors."""
+    if _on_cpu(pose, mom, cen, cfix):
+        return csum_packed_batched_plain(pose, mom, cen, cfix)
+    B, Wp, Gp = _batched_shapes(pose, mom)
+    _check("pose", pose, (B, Wp, 12))
+    _check("mom", mom, (B, Wp, 10, Gp))
+    _check("cen", cen, (B, 3, Gp))
+    _check("cfix", cfix, (B, 10, Gp))
+    out = torch.empty((B, 10, Gp), dtype=torch.float32, device=mom.device)
+    rc = _cuda.lib().balm_csum_packed_batched(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), cfix.data_ptr(),
+        out.data_ptr(), B, Wp, Gp, mom.device.index, _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "csum batched")
+    csum_packed_batched.launches += 1
+    return out
+
+
+csum_packed_batched.launches = 0
+
+
+def rows_packed_batched_plain(pose, mom, cen, aux):
+    """Plain version of the batched `rows` launch: rows_packed_plain on
+    each problem -> (rows (B, 3, 6, Wp, Gp), J (B, Wp, 6), D (B, Wp,
+    36))."""
+    outs = [rows_packed_plain(*a) for a in zip(pose, mom, cen, aux)]
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def rows_packed_batched(pose, mom, cen, aux):
+    """B2 over a batch, one launch whatever B (its partial-sum pass
+    included): (rows (B, 3, 6, Wp, Gp), J (B, Wp, 6), D (B, Wp, 36)) —
+    the CUDA `rows` kernel with the problem on a grid axis on CUDA
+    tensors, rows_packed_batched_plain on CPU tensors."""
+    if _on_cpu(pose, mom, cen, aux):
+        return rows_packed_batched_plain(pose, mom, cen, aux)
+    B, Wp, Gp = _batched_shapes(pose, mom)
+    _check("pose", pose, (B, Wp, 12))
+    _check("mom", mom, (B, Wp, 10, Gp))
+    _check("cen", cen, (B, 3, Gp))
+    _check("aux", aux, (B, AUX_CH, Gp))
+    lib = _cuda.lib()
+    ntiles = -(-Gp // lib.balm_rows_block_planes())
+    dev = mom.device
+    rows = _empty(dev, B, 3, 6, Wp, Gp)
+    partial = _empty(dev, B, Wp, ntiles, 42)
+    J = _empty(dev, B, Wp, 6)
+    D = _empty(dev, B, Wp, 36)
+    rc = lib.balm_rows_packed_batched(
+        pose.data_ptr(), mom.data_ptr(), cen.data_ptr(), aux.data_ptr(),
+        rows.data_ptr(), partial.data_ptr(), J.data_ptr(), D.data_ptr(),
+        B, Wp, Gp, dev.index, _cuda.stream_of(mom))
+    _cuda.check_launch(rc, "rows batched")
+    rows_packed_batched.launches += 1
+    return rows, J, D
+
+
+rows_packed_batched.launches = 0
+
+
+# --------------------------------------------------------------------------
 # Glue: full evaluate / residual
 # --------------------------------------------------------------------------
 
 def _aux_from_csum(csum, pk: PackedFactors, gap_eps):
-    """Eigendecomposition + per-plane weights -> (res, aux (17, Gp))."""
+    """Eigendecomposition + per-plane weights -> (res, aux (17, Gp)); a
+    leading batch axis (csum (B, 10, Gp)) gives res (B,), aux (B, 17,
+    Gp)."""
     N, Ns, valid, vbar, cov = csum_to_cov(csum, pk.coe)
     lam, U = eigh3(cov)                                   # (Gp,3), (Gp,3,3)
-    coew = torch.where(valid, pk.coe[0], 0.0)
-    res = torch.sum(coew * lam[:, 0])
+    coew = torch.where(valid, pk.coe[..., 0, :], 0.0)
+    res = torch.sum(coew * lam[..., 0], dim=-1)
     invN = 1.0 / Ns
     sqa = torch.sqrt(2.0 * coew) * invN
-    scale = torch.clamp(lam[:, 2], min=1e-30)
-    gap = lam[:, 1:] - lam[:, 0:1]
-    wk = torch.where(gap > gap_eps * scale[:, None],
-                     2.0 * coew[:, None] / torch.clamp(gap, min=1e-30), 0.0)
+    scale = torch.clamp(lam[..., 2], min=1e-30)
+    gap = lam[..., 1:] - lam[..., 0:1]
+    wk = torch.where(gap > gap_eps * scale[..., None],
+                     2.0 * coew[..., None] / torch.clamp(gap, min=1e-30),
+                     0.0)
     sqw = torch.sqrt(wk)                                  # (Gp, 2)
+    T = lambda x: x.transpose(-1, -2)
     aux = torch.cat([
-        U[:, :, 0].T, U[:, :, 1].T, U[:, :, 2].T,
+        T(U[..., 0]), T(U[..., 1]), T(U[..., 2]),
         vbar,
-        invN[None], sqa[None], sqw[:, 0][None], sqw[:, 1][None],
-        coew[None],
-    ], dim=0).to(torch.float32).contiguous()              # (17, Gp)
+        invN[..., None, :], sqa[..., None, :], sqw[..., 0][..., None, :],
+        sqw[..., 1][..., None, :], coew[..., None, :],
+    ], dim=-2).to(torch.float32).contiguous()             # (17, Gp)
     return res, aux
 
 
@@ -700,15 +795,17 @@ def pallas2_to_pallas3(Wp: int) -> bool:
 
 
 def _assemble_wj(Ht, Jt, Dt, W):
-    """(w, j)-major Htilde (6Wp, 6Wp), J (Wp, 6), D (Wp, 36) -> the
-    evaluate's J (6W,) and H (6W, 6W): crop, negate the rank part, add
-    the diagonal blocks."""
-    Wp = Jt.shape[0]
-    H = (-Ht.view(Wp, 6, Wp, 6)[:W, :, :W, :]).contiguous()
-    # H[w, a, w, b] += D[w, a, b]: the (0, 2) diagonal is a view of H
-    torch.diagonal(H, dim1=0, dim2=2).add_(
-        Dt[:W].reshape(W, 6, 6).permute(1, 2, 0))
-    return Jt[:W].reshape(6 * W), H.view(6 * W, 6 * W)
+    """(w, j)-major Htilde (..., 6Wp, 6Wp), J (..., Wp, 6), D (..., Wp,
+    36) -> the evaluate's J (..., 6W) and H (..., 6W, 6W): crop, negate
+    the rank part, add the diagonal blocks (leading batch dims carry
+    over)."""
+    lead, Wp = Jt.shape[:-2], Jt.shape[-2]
+    H = (-Ht.view(*lead, Wp, 6, Wp, 6)[..., :W, :, :W, :]).contiguous()
+    # H[w, a, w, b] += D[w, a, b]: the (w, w) diagonal is a view of H
+    torch.diagonal(H, dim1=-4, dim2=-2).add_(
+        Dt[..., :W, :].reshape(*lead, W, 6, 6).movedim(-3, -1))
+    return (Jt[..., :W, :].reshape(*lead, 6 * W),
+            H.view(*lead, 6 * W, 6 * W))
 
 
 # the evaluate's impls, as the JAX package names them
@@ -763,17 +860,59 @@ def evaluate_packed(R, p, pk: PackedFactors, *, gap_eps: float = 1e-9,
     return res, J, H
 
 
-def _residual(pose, pk: PackedFactors):
-    csum = csum_packed(pose, pk.mom, pk.cen, pk.cfix)
+def _residual(pose, pk: PackedFactors, csum_fn=None):
+    csum = (csum_fn or csum_packed)(pose, pk.mom, pk.cen, pk.cfix)
     N, Ns, valid, vbar, cov = csum_to_cov(csum, pk.coe)
     lam = eigvals3(cov)
-    coew = torch.where(valid, pk.coe[0], 0.0)
-    return torch.sum(coew * lam[:, 0])
+    coew = torch.where(valid, pk.coe[..., 0, :], 0.0)
+    return torch.sum(coew * lam[..., 0], dim=-1)
 
 
 def residual_only_packed(R, p, pk: PackedFactors):
     """Total cost sum_g coe_g lambda_0(g): the `csum` kernel + eigvals."""
     return _residual(pad_poses(R, p, pk.wp).to(torch.float32), pk)
+
+
+def evaluate_packed_batched(R, p, pk: PackedFactors, *,
+                            gap_eps: float = 1e-9, hess_precision="high"):
+    """evaluate_packed(impl='xla') over a batch of problems of one shape,
+    the JAX package's vmap of it: R (B, W, 3, 3), p (B, W, 3), pk from
+    pack_factors_batched -> (res (B,), J (B, 6W), H (B, 6W, 6W)), J and
+    H in (w, j)-major order.
+
+    One batched B1 launch, eigh3 and the aux channels elementwise over
+    the batch, one batched B2 launch, then H = sum_k M_k M_k^T as
+    batched fp32 products (torch.bmm, TF32 off: the JAX package's dot
+    outside any kernel) and the per-problem assembly.  The launch count
+    does not depend on B."""
+    if hess_precision != "high":
+        raise NotImplementedError(
+            f"the batched evaluate runs hess_precision='high' (the exact "
+            f"fp32 product, damping_iter's default); {hess_precision!r} "
+            f"is not ported to it (ROADMAP.md, queue B)")
+    B, W = R.shape[:2]
+    Wp, Gp = pk.wp, pk.gp
+    pose = pad_poses(R, p, Wp).to(torch.float32)
+    csum = csum_packed_batched(pose, pk.mom, pk.cen, pk.cfix)
+    res, aux = _aux_from_csum(csum, pk, gap_eps)
+    rows, Jt, Dt = rows_packed_batched(pose, pk.mom, pk.cen, aux)
+    M = rows.view(B, 3, 6 * Wp, Gp)
+    with fp32_matmul():
+        Ht = torch.bmm(M[:, 0], M[:, 0].transpose(1, 2))
+        Ht.baddbmm_(M[:, 1], M[:, 1].transpose(1, 2))
+        Ht.baddbmm_(M[:, 2], M[:, 2].transpose(1, 2))
+    # (j, w)-major -> (w, j)-major
+    Ht = Ht.view(B, 6, Wp, 6, Wp).permute(0, 2, 1, 4, 3).reshape(
+        B, 6 * Wp, 6 * Wp)
+    J, H = _assemble_wj(Ht, Jt, Dt, W)
+    return res, J, H
+
+
+def residual_only_packed_batched(R, p, pk: PackedFactors):
+    """residual_only_packed over a batch: (B,) costs, one batched B1
+    launch + eigvals."""
+    return _residual(pad_poses(R, p, pk.wp).to(torch.float32), pk,
+                     csum_packed_batched)
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,9 @@ Counterpart: balm_tpu/solver/lm.py — damping_iter (:69) with the
 'xla' and 'packed' backends, the left and right updates and the
 'cholesky', 'cholesky_nofallback', 'lu' and 'pcg' solvers,
 damping_iter_resumable (:461) and damping_iter_timed (:509), all with
-pose-graph `edges` (:257-270), with the same rules (reference
+pose-graph `edges` (:257-270), and damping_iter_batched, the packed
+loop over a batch of blocks (the device-batched hierarchy's vmap of
+damping_iter, balm_tpu/pipelines/hierarchical.py:711-713), with the same rules (reference
 BALM2::damping_iter, src/benchmark/bavoxel.hpp:1069-1166):
 
   * solve (H + u D) dx = -J with D = diag(H) floored by the tau shift
@@ -31,9 +33,10 @@ damping_iter_timed stamps the wall clock after each synchronized step.
 The evaluate is either ops/factors.py's (backend 'xla': evaluate,
 evaluate_right for the right update, residual_only) or the packed path
 with the JAX package's `packed_impl` and `chunk_planes` options
-(lm.py:190-236): the hybrid evaluate in (j, w)-major order ('auto' and
-'hybrid', the `csum` and `rows` kernels and an fp32 product, unless the
-solver is 'pcg', whose block-Jacobi blocks need (w, j)-major),
+(lm.py:190-236): the hybrid evaluate in (j, w)-major order ('hybrid',
+and 'auto' from 256 poses, the `csum` and `rows` kernels and an fp32
+product, unless the solver is 'pcg', whose block-Jacobi blocks need
+(w, j)-major),
 evaluate_packed in (w, j)-major order for 'xla', 'pallas', 'pallas2'
 and 'pallas3' (the fused kernels B6, B4, B5), or the chunked evaluate
 when chunk_planes > 0; with edges the hybrid evaluate too is
@@ -119,6 +122,15 @@ def _solve(A, b, linear_solver, W, pcg_iters, pcg_tol):
     return dx, ok.to(A.dtype)
 
 
+def auto_impl(W: int) -> str:
+    """packed_impl='auto' for a window of W poses: 'hybrid' from 256
+    poses, 'xla' below, the JAX package's rule on its accelerator
+    (balm_tpu/solver/lm.py:117-124; C10).  The two give one function;
+    their f32 steps round in another order, enough near convergence to
+    move the stop test."""
+    return "hybrid" if W >= 256 else "xla"
+
+
 def _check(R, cfg, centered, update, linear_solver, backend, edges,
            hess_precision, packed_impl, chunk_planes):
     """Validate damping_iter's options; returns (backend, packed_impl)
@@ -133,7 +145,7 @@ def _check(R, cfg, centered, update, linear_solver, backend, edges,
                              "pcg"):
         raise ValueError(f"unknown linear_solver {linear_solver!r}")
     if packed_impl == "auto":
-        packed_impl = "hybrid"
+        packed_impl = auto_impl(R.shape[0])
     if packed_impl not in pe.IMPLS:
         raise ValueError(f"unknown packed_impl {packed_impl!r}")
     if chunk_planes < 0:
@@ -180,8 +192,8 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
     fails), 'cholesky_nofallback', 'lu', or 'pcg' (block-Jacobi CG on
     the damped system; pcg_iters 0 means min(6W, 400), pcg_tol is the
     relative residual stop).
-    packed_impl ('packed' only): 'auto' (= 'hybrid': it gives the same
-    result as every other impl), 'hybrid', 'xla', 'pallas', 'pallas2' or
+    packed_impl ('packed' only): 'auto' ('hybrid' from 256 poses,
+    'xla' below: auto_impl), 'hybrid', 'xla', 'pallas', 'pallas2' or
     'pallas3' — see ops.packed_evaluate.evaluate_packed.  chunk_planes > 0
     ('packed' only): the chunked evaluate over plane chunks of that many
     planes; it ignores packed_impl, as in JAX.  hess_precision ('packed'
@@ -439,7 +451,7 @@ def damping_iter_resumable(R, p, f: F.PlaneFactors,
     passes through further chunks unchanged).  A state from the JAX
     package resumes here and the other way round.  H and J are in the
     layout of the evaluate: (w, j)-major for backend 'xla' and every
-    packed impl but 'hybrid' (packed_impl='auto' here), whose H and J
+    packed impl but 'hybrid' ('auto' from 256 poses), whose H and J
     are (j, w)-major; such a state resumes only under the same layout.
 
     chunk_iters: LM iterations per call (0 = on to cfg.max_iters).
@@ -467,7 +479,7 @@ def damping_iter_timed(R, p, f: F.PlaneFactors,
     'time cost' convergence-curve protocol; balm_tpu/solver/lm.py:509).
 
     Runs damping_iter's transition with its defaults (for the packed
-    backend the hybrid evaluate), so on one device its trace equals
+    backend packed_impl='auto'), so on one device its trace equals
     damping_iter's bit for bit.  One step on the initial carry, discarded, warms the
     kernels and the allocator outside the timed region; each stamp is
     taken after a torch.cuda.synchronize() on the card.  edges: as
@@ -493,6 +505,154 @@ def damping_iter_timed(R, p, f: F.PlaneFactors,
             times.append(time.perf_counter() - t0)
         res = _finish(c, degenerate, eval_res, cfg.gauge_fix)
     return res, np.asarray(times)
+
+
+def damping_iter_batched(R, p, f: F.PlaneFactors,
+                         cfg: SolverConfig = SolverConfig(), *,
+                         centered: bool = True,
+                         backend: str = "packed") -> LMResult:
+    """damping_iter over a batch of independent problems of one shape:
+    the JAX package's jax.vmap of damping_iter(centered=True,
+    backend='packed') in the device-batched hierarchy
+    (balm_tpu/pipelines/hierarchical.py:711-713).
+
+    R (B, W, 3, 3), p (B, W, 3) float32; f: PlaneFactors whose leaves
+    carry a leading B axis (C (B, G, W, 4, 4), ...), body-recentered.
+    Each lane runs damping_iter's transition on its own: its own damping
+    u and v, accept or reject, cached H and J, iteration count and stop.
+    A lane that has stopped keeps its state, as vmap's select does; the
+    loop runs while any lane is active.  Per iteration the device
+    evaluates all lanes at once (evaluate_packed_batched: one batched B1
+    and one batched B2 launch, skipped when every active lane reuses its
+    cached Hessian), factorizes them in one batched Cholesky and forms
+    the trial costs (one more batched B1 launch); the host reads one
+    (B, 4) tensor (res1, res2, q1, ok) and runs each lane's scalar
+    algebra in float32 numpy, as damping_iter does.  A lane whose
+    Cholesky fails takes that iteration's step from a pivoted LU solve
+    (damping_iter's linear_solver='cholesky').  A lane with no planes
+    keeps its input poses (its steps are never accepted).
+
+    Returns an LMResult whose fields carry the leading B axis: R, p
+    tensors, residual (B,) float numpy, iters (B,) int numpy, degenerate
+    (B,) bool numpy and traces (B, max_iters)."""
+    if backend not in ("packed", "pallas") or not centered:
+        raise ValueError("damping_iter_batched runs the packed backend "
+                         "with centered=True")
+    if R.dtype != torch.float32:
+        raise ValueError("packed backend is the float32 fast path")
+    if R.dim() != 4:
+        raise ValueError(f"R must be (B, W, 3, 3), got {tuple(R.shape)}")
+    B, W = R.shape[:2]
+    dev = R.device
+    ft = np.float32
+    eps = ft(np.finfo(ft).eps)
+    pk = packed_mod.pack_factors_batched(f)
+    degenerate = (f.planes_per_pose().amin(-1)
+                  < cfg.min_planes_per_pose).cpu().numpy()
+    eval_full = lambda R_, p_: pe.evaluate_packed_batched(R_, p_, pk)
+    eval_res = lambda R_, p_: pe.residual_only_packed_batched(R_, p_, pk)
+    mask = lambda m: torch.as_tensor(m, device=dev)
+
+    n6 = 6 * W
+    u = np.full(B, cfg.u_init, ft)
+    v = np.full(B, cfg.v_init, ft)
+    res1 = np.zeros(B, ft)
+    calc = np.ones(B, bool)
+    it = np.zeros(B, np.int64)
+    done = np.zeros(B, bool)
+    nan = np.full((B, cfg.max_iters), np.nan, ft)
+    t_res1, t_res2, t_u, t_acc = nan, nan.copy(), nan.copy(), nan.copy()
+    H = torch.zeros((B, n6, n6), dtype=R.dtype, device=dev)
+    J = torch.zeros((B, n6), dtype=R.dtype, device=dev)
+    res_c = torch.zeros(B, dtype=R.dtype, device=dev)
+
+    with fp32_matmul():
+        while True:
+            active = ~done & (it < cfg.max_iters) & ~degenerate
+            if not active.any():
+                break
+            if (calc & active).any():
+                res_n, J_n, H_n = eval_full(R, p)
+                cm = mask(calc & active)
+                res_c = torch.where(cm, res_n, res_c)
+                J = torch.where(cm[:, None], J_n, J)
+                H = torch.where(cm[:, None, None], H_n, H)
+                del res_n, J_n, H_n
+            D = torch.diagonal(H, dim1=-2, dim2=-1)
+            # damping floor: shift only when some diagonal entry is <= 0
+            tau = 2.0 * torch.clamp(-D.amin(-1), min=0.0)
+            Dd = D + tau[:, None]
+            ut = mask(u)
+            A = H + ut[:, None, None] * torch.diag_embed(Dd)
+            L, info = torch.linalg.cholesky_ex(A)
+            dx = torch.cholesky_solve(-J[..., None], L)[..., 0]
+            ok = (info == 0) & torch.all(torch.isfinite(dx), dim=-1)
+
+            def trial(dx):
+                Rt, pt = lie.se3_left_update(R, p, dx.view(B, W, 6))
+                q1 = 0.5 * torch.sum(dx * (ut[:, None] * Dd * dx - J), -1)
+                return Rt, pt, q1, eval_res(Rt, pt)
+
+            Rt, pt, q1, res2 = trial(dx)
+            vals = torch.stack([res_c, res2, q1, ok.to(R.dtype)],
+                               -1).cpu().numpy()
+            fail = active & (vals[:, 3] == 0)
+            if fail.any():
+                # failed or non-finite Cholesky steps: those lanes take
+                # this iteration's step from the pivoted LU solve
+                dx_lu = torch.linalg.solve_ex(A, -J)[0]
+                dx = torch.where(mask(fail)[:, None], dx_lu, dx)
+                Rt, pt, q1, res2 = trial(dx)
+                vals = torch.stack([res_c, res2, q1], -1).cpu().numpy()
+            r1, r2, q1h = (vals[:, k].astype(ft) for k in range(3))
+
+            q = r1 - r2
+            accept = (q > 0) & np.isfinite(r2) & (r2 > 0)
+            with np.errstate(all="ignore"):
+                rho = q / q1h
+                shrink = ft(1.0) - (ft(2.0) * rho - ft(1.0)) ** 3
+                u_acc = u * np.maximum(ft(1.0 / 3.0), shrink)
+                u_rej = u * v
+                rel = np.abs(r1 - r2) / np.maximum(r1, ft(1e-30))
+            v_new = np.where(accept, ft(2.0), ft(2.0) * v)
+            u_new = np.where(accept, u_acc, u_rej)
+            stop = rel < ft(cfg.rel_tol)
+            if cfg.abs_tol > 0:
+                stop |= np.abs(r1 - r2) < ft(cfg.abs_tol)
+            if cfg.ulp_tol > 0:
+                stop |= np.abs(r1 - r2) < ft(cfg.ulp_tol) * eps * np.abs(r1)
+            stop |= (u_new > ft(1e30)) | ~np.isfinite(u_new)
+
+            lanes = np.nonzero(active)[0]
+            i = it[lanes]
+            t_res1[lanes, i] = r1[lanes]
+            t_res2[lanes, i] = r2[lanes]
+            t_u[lanes, i] = u[lanes]
+            t_acc[lanes, i] = accept[lanes].astype(ft)
+            take = active & accept
+            tm = mask(take)
+            R = torch.where(tm[:, None, None, None], Rt, R)
+            p = torch.where(tm[:, None, None], pt, p)
+            res_c = torch.where(tm, res2, res_c)
+            res1 = np.where(active, np.where(accept, r2, r1), res1)
+            u = np.where(active, u_new, u).astype(ft)
+            v = np.where(active, v_new, v).astype(ft)
+            calc = np.where(active, accept, calc)
+            done = np.where(active, stop, done)
+            it = it + active
+
+        # a lane that never stepped reports its cost at its input poses
+        res_end = (eval_res(R, p).cpu().numpy().astype(ft)
+                   if (it == 0).any() else res1)
+    Rf, pf = R, p
+    if cfg.gauge_fix:
+        R0 = R[:, 0]
+        Rf = torch.einsum("bji,bnjk->bnik", R0, R)
+        pf = torch.einsum("bji,bnj->bni", R0, p - p[:, :1])
+    residual = np.where(it > 0, res1, res_end).astype(np.float64)
+    return LMResult(R=Rf, p=pf, residual=residual, iters=it,
+                    degenerate=degenerate, trace_res1=t_res1,
+                    trace_res2=t_res2, trace_u=t_u, trace_accept=t_acc)
 
 
 def format_trace(result: LMResult) -> str:

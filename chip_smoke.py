@@ -150,6 +150,32 @@ failure raises and the script exits non-zero:
                C8: the one-pass bf16 product against its plain version,
                a hybrid solve at hess_precision='bf16', optimize_poses'
                defaults on the card and the CPU
+ 12. slice 9 - (a) the batched B1/B2 launches (csum_packed_batched,
+               rows_packed_batched) against their plain versions at the
+               W=2048 hierarchy's block shape (B=255, Wp=16, Gp=256) and
+               at B=3, W=13, G=300, on random moments from --seed, each
+               launched twice for the same bits and bitwise equal block
+               by block to the single-problem launch, timed beside their
+               bounds; (b) hierarchical.run_device_batched on a W=48 cut
+               of the W=400 corridor, card (batched launches > 0) and
+               CPU: the same block planes, RSME below the start's on
+               both, end poses printed (f32 rounding moves them,
+               scripts/batched_roundoff.py), and from the same inputs
+               card against CPU: the batched association, the batched
+               evaluate, the first STEP_ITERS block-LM steps, the anchor
+               association and the anchor solve's first steps; (d)
+               hierarchical.run through its anchor pose-graph stage (a
+               lifted loop edge 1.5 m off) card vs CPU in f64, and
+               pose_graph_optimize sparse vs dense on the W=40 circle;
+               (c) the JAX package's large-W protocol on
+               make_corridor(2048, seed=1, pts_per=60) (2,021,160
+               points): the flat banded solve (2 x 40 iterations)
+               against run_batched_consensus (the phase's main path,
+               every launch count set to 0 just before and read just
+               after), the common f64 cost at the init-pose
+               association: no overflow, 2047 edges, the hierarchy's
+               cost below 1.409 x cost_gt and below the flat solve's
+               (by RPE10 when the flat solve slid below cost_gt)
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
@@ -157,7 +183,9 @@ kernels' Htilde, B7's f32 Csum on the scene), `launches` counts the
 launches in the run of the kernel's own path (phase 9's realworld.run for
 csum and rows, with phase 6's optimize_poses count beside it as
 `launches_optimize_poses` and phase 11's packed NEES run_multi as
-`launches_nees_packed`; phase 7 for B4-B6, phase 8 (b) for B7), and
+`launches_nees_packed`; phase 7 for B4-B6, phase 8 (b) for B7; phase
+12 (c)'s run_batched_consensus for the batched csum and rows, with
+12 (b)'s count as `launches_device_batched_w48`), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
 error of every output (for the fused-Hessian kernels also under
 "random_W256_G11520", their errors on the random moments of phase 4;
@@ -1982,6 +2010,634 @@ def slice8(card, counters, dev, f, pk, R0t, p0t, ref):
 
 
 # --------------------------------------------------------------------------
+# phase 12: slice 9
+# --------------------------------------------------------------------------
+
+# (a) the batched B1/B2 launches at the block shape of the W=2048
+# hierarchy (run_batched_consensus at block 16, stride 8: B = 255 blocks
+# of Wp = 16 scans, Gcap = Gp = 256 planes) and at a ragged shape, on
+# random moments from --seed
+BATCH_SHAPES = (("W=2048 blocks B=255 W=16 G=256", 255, 16, 256),
+                ("ragged B=3 W=13 G=300", 3, 13, 300))
+# (b) run_device_batched(top=True) on a W=48 cut of the W=400 corridor,
+# one cycle, card and CPU, and each of its stages card against CPU from
+# the same inputs
+DB_CUT = 48
+# the batched association card against CPU on the same f32 inputs,
+# relative to max|.| of each factor leaf: the same elementwise transform,
+# the segment sums in another order on the card
+TOL_ASSOC = 1e-5
+# the steps of the block and anchor LM held card against CPU from the
+# same inputs: these 16-scan blocks and the 3-anchor problem converge in
+# 3-4 iterations, and from the third on a step changes the cost by ~1e-5
+# relative, where the card's and the CPU's rounding decide accept or
+# reject (the first two take it from ~18 to ~1.7)
+STEP_ITERS = 2
+# (c) the JAX package's large-W protocol (scripts/hba_tpu_large.py
+# :190-229) on make_corridor(2048, seed=1, pts_per=60) from
+# perturb_drift(seed=2), and its TPU record
+# (artifacts/hba_tpu_large_w2048.json), printed beside, gated only
+# through its flat ratio.  The card's flat f32 banded solve slides below
+# the ground truth's cost (0.9745 x, translation RSME 2.62 m on an
+# NVIDIA H100 80GB HBM3 at 700 W), where the TPU's stopped at 1.409 x;
+# the hierarchy is then held against it by RPE10
+LARGE_W = 2048
+LARGE_POINTS = 2021160
+LARGE_JAX = {"cost_gt": 178.04851515988244,
+             "flat_over_gt": 1.4091537182166838,
+             "hier_before_refine": 224.43027356423005,
+             "n_gated_measurements": 79, "n_prior_pairs": 14,
+             "rsme_before_refine": (1.259559359164715, 0.03708046609217099),
+             "polish_iters": 320}
+FLAT_CHUNKS, FLAT_ITERS = 2, 40
+# (d) the anchor pose-graph stage on the W=48 cut with one lifted loop
+# edge 1.5 m off (past anchor_pgo_gate), f64 card against CPU; and
+# pose_graph_optimize on tests/test_loopclose.py's W=40 circle, sparse
+# against dense (that test's bars)
+PGO_TOL = 1e-8
+PGO_CIRCLE_W = 40
+
+
+def batched_problem(seed, B, W, G, device):
+    """B random packed problems of one unpadded shape stacked on a
+    leading axis (ragged_problem's recipe, seeds seed .. seed + B - 1):
+    (pose (B, W, 12), PackedFactors with a leading B axis)."""
+    import torch
+
+    from balm_tpu_torch.ops.packed import PackedFactors
+
+    probs = [ragged_problem(seed + b, W=W, G=G, device=device)
+             for b in range(B)]
+    stack = lambda ts: torch.stack(ts).contiguous()
+    return (stack([q[0] for q in probs]),
+            PackedFactors(*[stack([q[1][k] for q in probs])
+                            for k in range(4)]))
+
+
+def check_batched(pose, pk, tag):
+    """The batched B1/B2 launches against their plain versions, launched
+    twice for the same bits, and block by block bitwise equal to the
+    single-problem launches; returns (error records, aux)."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    B, Wp, _, Gp = pk.mom.shape
+    args = (pose, pk.mom, pk.cen, pk.cfix)
+    out = {}
+    got = same_bits(f"[{tag}] csum batched",
+                    lambda: (pe.csum_packed_batched(*args),))[0]
+    ref = pe.csum_packed_batched_plain(*args)
+    out["csum"] = {"csum": compare(f"[{tag}] csum batched vs plain", got,
+                                   ref, TOL["csum"])}
+    for b in range(B):
+        one = pe.csum_packed(*(a[b] for a in args))
+        if not torch.equal(one, got[b]):
+            raise AssertionError(f"[{tag}] csum batched block {b} differs "
+                                 f"from the single-problem launch")
+    _, aux = pe._aux_from_csum(ref, pk, 1e-9)
+    hargs = (pose, pk.mom, pk.cen, aux)
+    rows = same_bits(f"[{tag}] rows batched",
+                     lambda: pe.rows_packed_batched(*hargs))
+    plain = pe.rows_packed_batched_plain(*hargs)
+    out["rows"] = {
+        name: compare(f"[{tag}] rows batched/{name} vs plain", a, c,
+                      TOL[name])
+        for name, a, c in zip(("rows", "J", "D"), rows, plain)}
+    for b in range(B):
+        one = pe.rows_packed(*(a[b] for a in hargs))
+        if not all(torch.equal(x, y[b]) for x, y in zip(one, rows)):
+            raise AssertionError(f"[{tag}] rows batched block {b} differs "
+                                 f"from the single-problem launch")
+    torch.cuda.synchronize()
+    log(f"  [{tag}] csum and rows batched: each of the {B} blocks bitwise "
+        f"equal to its single-problem launch (Wp={Wp} Gp={Gp})")
+    return out, aux
+
+
+def batched_kernels_phase(args, dev, card):
+    """Phase 12 (a): the batched launches at both shapes, each timed
+    beside its plain version and its bound.  -> {name: record}, the
+    main figures those of the W=2048 block shape, the ragged shape's
+    under "by_shape"."""
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    names = ("csum_batched", "rows_batched")
+    errs = {n: {} for n in names}
+    timing = {n: {} for n in names}
+    for i, (tag, B, W, G) in enumerate(BATCH_SHAPES):
+        pose, pk = batched_problem(args.seed + 1000 * (i + 1), B, W, G, dev)
+        e, aux = check_batched(pose, pk, tag)
+        errs["csum_batched"][tag] = e["csum"]
+        errs["rows_batched"][tag] = e["rows"]
+        cargs = (pose, pk.mom, pk.cen, pk.cfix)
+        hargs = (pose, pk.mom, pk.cen, aux)
+        bnd = bounds(W, G)
+        for name, key, fn, plain in (
+                ("csum_batched", "csum", pe.csum_packed_batched,
+                 pe.csum_packed_batched_plain),
+                ("rows_batched", "rows", pe.rows_packed_batched,
+                 pe.rows_packed_batched_plain)):
+            a = cargs if key == "csum" else hargs
+            t = {"ms": time_ms(lambda: fn(*a), iters=50),
+                 "plain_ms": time_ms(lambda: plain(*a), iters=2, warmup=1),
+                 "bound_ms": B * bnd[key]["bound_ms"],
+                 "bound_by": bnd[key]["bound_by"],
+                 "B": B, "Wp": W, "Gp": G}
+            timing[name][tag] = t
+            log(f"  {name} [{tag}]: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']}), {100 * t['bound_ms'] / t['ms']:.1f}% "
+                f"of it, one launch on {card}")
+        del pose, pk, aux
+    src = "balm_tpu_torch/csrc/packed_kernels.cu"
+    main_tag = BATCH_SHAPES[0][0]
+    recs = {}
+    for name, replaces, key in (
+            ("csum_batched", "balm_tpu/ops/pallas_evaluate.py:115", "csum"),
+            ("rows_batched", "balm_tpu/ops/pallas_evaluate.py:1126",
+             "rows")):
+        t = timing[name][main_tag]
+        recs[name] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name][main_tag][key]["abs"],
+            "err_by_output": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+            "by_shape": timing[name]}
+    return recs
+
+
+def host_cost(f, R, p):
+    """scripts/hba_tpu_large.py::host_cost in numpy: the common f64
+    cluster cost sum coe * lambda0 of raw factors at any poses.  The
+    (plane, scan) moments are summed over the observed pairs only (the
+    others are zero and add nothing)."""
+    C = np.asarray(f.C, np.float64)
+    coe = np.asarray(f.coe, np.float64)
+    G = C.shape[0]
+    T = np.zeros((len(R), 4, 4))
+    T[:, :3, :3] = R
+    T[:, :3, 3] = p
+    T[:, 3, 3] = 1.0
+    g, w = np.nonzero(C[..., 3, 3] > 0)
+    Q = np.zeros((G, 4, 4))
+    np.add.at(Q, g, T[w] @ C[g, w] @ np.swapaxes(T[w], -1, -2))
+    N = np.maximum(Q[:, 3, 3], 1.0)
+    c = Q[:, :3, 3] / N[:, None]
+    cov = Q[:, :3, :3] / N[:, None, None] - c[:, :, None] * c[:, None, :]
+    lam = np.linalg.eigvalsh(cov)
+    lam0 = np.where(coe > 0, lam[:, 0], 0.0)
+    return float(np.sum(coe * lam0))
+
+
+def horn_rsme(R, p, Rg, pg):
+    """scripts/hba_tpu_large.py::rsme: [rot deg, trans m] after the
+    best-fit rigid alignment (Horn)."""
+    mu_a, mu_b = p.mean(0), pg.mean(0)
+    U, _, Vt = np.linalg.svd((p - mu_a).T @ (pg - mu_b))
+    d = np.sign(np.linalg.det(Vt.T @ U.T))
+    Ra = Vt.T @ np.diag([1.0, 1.0, d]) @ U.T
+    p_al = p @ Ra.T + (mu_b - Ra @ mu_a)
+    trans = float(np.sqrt(np.mean(np.sum((p_al - pg) ** 2, axis=1))))
+    R_al = np.einsum("ab,wbc->wac", Ra, R)
+    cosang = np.clip((np.einsum("wab,wab->w", R_al, Rg) - 1.0) / 2.0,
+                     -1.0, 1.0)
+    return [float(np.sqrt(np.mean(np.arccos(cosang) ** 2))) * 57.2958,
+            trans]
+
+
+def rpe(R, p, Rg, pg, d=10):
+    """scripts/hba_tpu_large.py::rpe: [rot deg, trans m] RMS of the
+    relative pose error over d-scan separations."""
+    rots, trs = [], []
+    for i in range(len(R) - d):
+        dRm = (R[i].T @ R[i + d]).T @ (Rg[i].T @ Rg[i + d])
+        rots.append(np.arccos(np.clip((np.trace(dRm) - 1) / 2, -1, 1)))
+        trs.append(np.linalg.norm(R[i].T @ (p[i + d] - p[i])
+                                  - Rg[i].T @ (pg[i + d] - pg[i])))
+    return [float(np.sqrt(np.mean(np.square(rots)))) * 57.2958,
+            float(np.sqrt(np.mean(np.square(trs))))]
+
+
+def reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+
+
+def lane_steps(name, out, ref, n=STEP_ITERS):
+    """damping_iter_batched results `out` (card) and `ref` (CPU): each
+    lane's first n iterations take the same accept pattern with res1 and
+    res2 within TOL_TRACE relative (phase 6's bar); raises."""
+    worst = 0.0
+    for b in range(len(ref.iters)):
+        k = min(n, int(ref.iters[b]), int(out.iters[b]))
+        if not np.array_equal(out.trace_accept[b, :k],
+                              ref.trace_accept[b, :k]):
+            raise AssertionError(f"{name} lane {b}: the card and the CPU "
+                                 f"take different steps")
+        for key in ("trace_res1", "trace_res2"):
+            a = getattr(out, key)[b, :k].astype(np.float64)
+            c = getattr(ref, key)[b, :k].astype(np.float64)
+            worst = max(worst, float(np.max(np.abs(a - c) / np.abs(c))))
+    log(f"  {name}: every lane's first {n} iterations alike, res1/res2 "
+        f"within {worst:.3e} relative (tol {TOL_TRACE:.0e})")
+    if not (np.isfinite(worst) and worst <= TOL_TRACE):
+        raise AssertionError(f"{name}: {worst}")
+    return worst
+
+
+def device_batched_phase(card, dev, counters, scans, R0, p0, R_gt, p_gt):
+    """Phase 12 (b): run_device_batched(top=True) on the W=DB_CUT cut of
+    the W=400 corridor, card (launches counted) and CPU, and each of its
+    stages card against CPU from the same inputs: the batched
+    association, the batched block LM's first SLICE_ITERS iterations,
+    the batched evaluate at the start, the anchor association of the
+    same super-scans and the f32 'xla' anchor solve's first STEP_ITERS
+    iterations.  The end poses of the two runs
+    are printed, not gated: the f32 block solves carry rounding along
+    the corridor's weak modes, and the anchor association then admits
+    other borderline planes (scripts/batched_roundoff.py: starts 1e-7
+    apart end up to 4.3e-2 apart, 74 or 79 anchor planes)."""
+    import torch
+
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import packed as packed_mod
+    from balm_tpu_torch.ops import packed_evaluate as pe
+    from balm_tpu_torch.pipelines import hierarchical
+    from balm_tpu_torch.solver import lm
+    from balm_tpu_torch.voxel import device as vdev
+
+    W, blk = DB_CUT, 16
+    got = {}
+    for where, d in (("cuda", dev), ("cpu", "cpu")):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[where] = hierarchical.run_device_batched(
+            scans[:W], R0[:W], p0[:W], block=blk, cycles=1, device=d)
+        torch.cuda.synchronize()
+        n = {k: c.launches for k, c in counters.items()}
+        log(f"  (b) run_device_batched W={W} on {where}: "
+            f"{time.perf_counter() - t0:.2f} s (host clock), timings "
+            f"{got[where][2]['timings']}, launches {n}")
+        if where == "cuda":
+            launches = n
+    (Rc, pc, ic), (Rh, ph, ih) = got["cuda"], got["cpu"]
+    gt = (R_gt[:W], p_gt[:W])
+    rs0 = rsme(R0[:W], p0[:W], *gt)
+    rsc = rsme(Rc, pc, *gt)
+    rsh = rsme(Rh, ph, *gt)
+    dpose = max(float(np.max(np.abs(Rc - Rh))),
+                float(np.max(np.abs(pc - ph))))
+    log(f"  (b) block planes {ic['block_planes']} (CPU "
+        f"{ih['block_planes']}), anchor planes {ic['top_planes']} (CPU "
+        f"{ih['top_planes']}); end poses card vs CPU {dpose:.3e} (not "
+        f"gated); RSME start {rs0[0]:.3e} rad {rs0[1]:.3e} m, card "
+        f"{rsc[0]:.3e} / {rsc[1]:.3e}, CPU {rsh[0]:.3e} / {rsh[1]:.3e}")
+    if ic["block_planes"] != ih["block_planes"]:
+        raise AssertionError("block plane counts differ card vs CPU")
+    if ic["overflow"] or ih["overflow"]:
+        raise AssertionError("run_device_batched overflowed")
+    for rs in (rsc, rsh):
+        if not (rs[0] < rs0[0] and rs[1] < rs0[1]):
+            raise AssertionError(f"run_device_batched RSME {rs} not below "
+                                 f"the start's {rs0}")
+    if launches["csum_batched"] <= 0 or launches["rows_batched"] <= 0:
+        raise AssertionError(f"batched launches on the card: {launches}")
+
+    # stage by stage from the same inputs (the first cycle's)
+    body_h, mask_h = vdev.pad_scans(
+        [np.asarray(s, np.float32) for s in scans[:W]], np.float32)
+    idx = np.stack([np.arange(s, s + blk) for s in range(0, W, blk)])
+    Ra, pa = R0[idx[:, 0]], p0[idx[:, 0]]
+    R_rel = np.einsum("bca,bwcd->bwad", Ra, R0[idx])
+    p_rel = np.einsum("bca,bwc->bwa", Ra, p0[idx] - pa[:, None])
+    vcfg = VoxelConfig(min_observers=2)
+    kw = dict(voxel_size=float(vcfg.voxel_size),
+              layer_limit=int(vcfg.layer_limit),
+              eigen_ratio=tuple(float(r) for r in vcfg.eigen_ratio),
+              min_points=int(vcfg.min_points), min_observers=2,
+              unit_coe=False, want_point_leaf=False)
+    T = lambda a, d: torch.as_tensor(np.asarray(a)).to(
+        device=d, dtype=torch.float32 if np.asarray(a).dtype.kind == "f"
+        else None)
+    ins = {d: (T(body_h[idx], d), T(mask_h[idx], d), T(R_rel, d),
+               T(p_rel, d)) for d in (dev, "cpu")}
+    assoc = {d: vdev.voxelize_core_batched(
+        *ins[d], cell_caps=(1 << 10, 1 << 12, 1 << 14), Gcap=256,
+        cs_cap=1 << 15, **kw) for d in (dev, "cpu")}
+    a_c, a_h = assoc[dev], assoc["cpu"]
+    if not torch.equal(a_c.num_planes.cpu(), a_h.num_planes):
+        raise AssertionError("batched association: plane counts differ")
+    err_assoc = {k: compare(f"(b) batched association {k}, card vs CPU",
+                            getattr(a_c.factors, k), getattr(a_h.factors, k),
+                            TOL_ASSOC)
+                 for k in ("C", "coe", "centers", "body_centers")}
+    short = SolverConfig(max_iters=STEP_ITERS, u_init=0.01,
+                         min_planes_per_pose=0, gauge_fix=False)
+    f_h = a_h.factors
+    f_c = type(f_h)(*[x.to(dev) for x in f_h])
+    evs = [pe.evaluate_packed_batched(R_, p_, packed_mod.pack_factors_batched(
+        f_)) for R_, p_, f_ in ((ins[dev][2], ins[dev][3], f_c),
+                                (ins["cpu"][2], ins["cpu"][3], f_h))]
+    for k, name in enumerate(("res", "J", "H")):
+        compare(f"(b) batched evaluate {name} at the start, card vs CPU",
+                evs[0][k], evs[1][k], TOL_EVAL[name])
+    del evs
+    lm_c = lm.damping_iter_batched(ins[dev][2], ins[dev][3], f_c, short)
+    lm_h = lm.damping_iter_batched(ins["cpu"][2], ins["cpu"][3], f_h, short)
+    w_lm = lane_steps("(b) batched block LM, card vs CPU", lm_c, lm_h)
+
+    # the anchor level from the CPU run's block solutions
+    _, Rr, pr = ih["block_rel"]
+    Nmax = body_h.shape[1]
+    top = {}
+    for d in (dev, "cpu"):
+        bb, mb = ins[d][0], ins[d][1]
+        Rr_d, pr_d = T(Rr, d), T(pr, d)
+        sp = (Rr_d[:, :, None, :, 0] * bb[..., 0, None]
+              + Rr_d[:, :, None, :, 1] * bb[..., 1, None]
+              + Rr_d[:, :, None, :, 2] * bb[..., 2, None]) \
+            + pr_d[:, :, None, :]
+        tres = vdev._voxelize_core(
+            sp.reshape(len(idx), blk * Nmax, 3), mb.reshape(len(idx), -1),
+            T(Ra, d), T(pa, d), cell_caps=(1 << 14, 1 << 16, 1 << 18),
+            Gcap=1 << 13, cs_cap=1 << 21, **kw)
+        top[d] = (int(tres.num_planes), lm.damping_iter(
+            T(Ra, d), T(pa, d), tres.factors, short, centered=True,
+            backend="xla"))
+    (n_c, t_c), (n_h, t_h) = top[dev], top["cpu"]
+    log(f"  (b) anchor association of the same super-scans: {n_c} planes "
+        f"on the card, {n_h} on the CPU")
+    if n_c != n_h:
+        raise AssertionError("anchor association: plane counts differ")
+    same_steps("(b) anchor solve, card vs CPU", t_c, t_h, "CPU",
+               n=min(STEP_ITERS, t_h.iters))
+    return {"pose_diff_end": dpose, "launches": launches,
+            "block_planes": ic["block_planes"],
+            "top_planes": [ic["top_planes"], ih["top_planes"]],
+            "rsme_start": list(rs0), "rsme_card": list(rsc),
+            "rsme_cpu": list(rsh), "assoc_err": err_assoc,
+            "block_lm_trace_rel": w_lm, "timings": ic["timings"]}
+
+
+def large_hba_phase(card, dev, counters):
+    """Phase 12 (c): the W=2048 corridor, flat banded solve against
+    run_batched_consensus (the main path of this phase: launch counts
+    set to 0 just before, read just after)."""
+    import torch
+
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import factors_windowed as FW
+    from balm_tpu_torch.pipelines import hierarchical
+    from balm_tpu_torch.solver import large
+    from balm_tpu_torch.voxel import grid
+
+    rec = {}
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_hba_corridor(LARGE_W, seed=1, pts_per=60)
+    R0, p0 = perturb_drift(R_gt, p_gt, seed=2)
+    n_pts = int(sum(len(s) for s in scans))
+    log(f"  (c) W={LARGE_W} corridor: {n_pts} points (scene "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if n_pts != LARGE_POINTS:
+        raise AssertionError(f"the corridor has {n_pts} points, the JAX "
+                             f"package's {LARGE_POINTS}")
+    vcfg = VoxelConfig(min_observers=2)
+    t0 = time.perf_counter()
+    vres0 = grid.voxelize(scans, R0, p0, vcfg, dtype=np.float64)
+    t_assoc = time.perf_counter() - t0
+    cost_init = host_cost(vres0.factors, R0, p0)
+    cost_gt = host_cost(vres0.factors, R_gt, p_gt)
+    log(f"  (c) init-pose association: {vres0.num_planes} planes "
+        f"({t_assoc:.2f} s host); common cost at the init {cost_init:.4f}, "
+        f"at the ground truth {cost_gt:.4f} (JAX package "
+        f"{LARGE_JAX['cost_gt']:.4f})")
+
+    # flat banded: scripts/hba_tpu_large.py::banded_solve
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf0 = FW.windowed_from_numpy(
+        FW.from_dense(Fmod.recenter_bodies(vres0.factors)), device=dev,
+        dtype=torch.float32)
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+    Rc, pc, fit = T(R0), T(p0), 0
+    for _ in range(FLAT_CHUNKS):
+        res = large.damping_iter_large(
+            Rc, pc, wf0, SolverConfig(max_iters=FLAT_ITERS, u_init=0.01),
+            linear_solver="banded")
+        fit += int(res.iters)
+        Rc, pc = res.R, res.p
+        if int(res.iters) < FLAT_ITERS:
+            break
+    torch.cuda.synchronize()
+    t_flat = time.perf_counter() - t0
+    Rf, pf = Rc.double().cpu().numpy(), pc.double().cpu().numpy()
+    cost_flat = host_cost(vres0.factors, Rf, pf)
+    del wf0
+
+    reset_counts(counters)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Rh, ph, info = hierarchical.run_batched_consensus(
+        scans, R0, p0, block=16, cycles=1, voxel=vcfg,
+        edge_weight_scale=1e-3, block_caps=(1 << 9, 1 << 11, 1 << 13),
+        Gcap_block=256, cs_cap_block=1 << 15,
+        polish_solver=SolverConfig(max_iters=40, u_init=0.01),
+        polish_chunks=16, device=dev)
+    torch.cuda.synchronize()
+    t_hier = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    cost_hier = host_cost(vres0.factors, Rh, ph)
+    info.pop("edges", None)
+
+    q = {name: (horn_rsme(R, p, R_gt, p_gt), rpe(R, p, R_gt, p_gt))
+         for name, (R, p) in (("start", (R0, p0)), ("flat", (Rf, pf)),
+                              ("hierarchy", (Rh, ph)))}
+    log(f"  (c) flat banded: {fit} iterations in {t_flat:.2f} s (host "
+        f"clock), cost {cost_flat:.4f} = {cost_flat / cost_gt:.4f} x "
+        f"cost_gt (JAX package {LARGE_JAX['flat_over_gt']:.4f})")
+    log(f"  (c) run_batched_consensus: {t_hier:.2f} s (host clock), "
+        f"cost {cost_hier:.4f} = {cost_hier / cost_gt:.4f} x cost_gt (JAX "
+        f"package before its refine rounds "
+        f"{LARGE_JAX['hier_before_refine'] / LARGE_JAX['cost_gt']:.4f}); "
+        f"n_edges {info['n_edges']}, gated {info['n_gated_measurements']} "
+        f"(JAX {LARGE_JAX['n_gated_measurements']}), prior pairs "
+        f"{info['n_prior_pairs']} (JAX {LARGE_JAX['n_prior_pairs']}), "
+        f"polish {info['polish_iters']} iterations (JAX "
+        f"{LARGE_JAX['polish_iters']}), {info['polish_planes']} planes, "
+        f"span {info['polish_span']}")
+    log(f"  (c) seconds by stage: blocks {info['timings']}, edges "
+        f"{info['edges_s']}, polish association {info['polish_assoc_s']}, "
+        f"polish solve {info['polish_solve_s']}; peak device memory "
+        f"{peak:.1f} MiB; launches {launches} on {card}")
+    for name, (rs, rp) in q.items():
+        log(f"  (c) {name}: RSME {rs[0]:.4f} deg {rs[1]:.4f} m, RPE10 "
+            f"{rp[0]:.4f} deg {rp[1]:.4f} m (not gated)")
+    log(f"  (c) the JAX package's RSME before its refine rounds "
+        f"{LARGE_JAX['rsme_before_refine'][0]:.4f} deg "
+        f"{LARGE_JAX['rsme_before_refine'][1]:.4f} m")
+    rec.update({
+        "points": n_pts, "planes": vres0.num_planes, "cost_gt": cost_gt,
+        "cost_init": cost_init, "init_assoc_s": t_assoc,
+        "flat": {"iters": fit, "wall_s": t_flat, "cost": cost_flat,
+                 "over_gt": cost_flat / cost_gt},
+        "hierarchy": {"wall_s": t_hier, "cost": cost_hier,
+                      "over_gt": cost_hier / cost_gt,
+                      "peak_device_mib": peak, "launches": launches,
+                      **{k: v for k, v in info.items()
+                         if k != "timings"},
+                      "timings": info["timings"]},
+        "quality": {k: {"rsme": v[0], "rpe10": v[1]}
+                    for k, v in q.items()}})
+    if info["overflow"]:
+        raise AssertionError("run_batched_consensus overflowed")
+    if info["n_edges"] != LARGE_W - 1:
+        raise AssertionError(f"n_edges {info['n_edges']} != {LARGE_W - 1}")
+    # the hierarchy against the flat solve: by cost, unless the flat
+    # solve has slid below the ground truth's cost along the corridor's
+    # bending modes (the JAX package's finding: cost alone cannot judge
+    # past W ~ 1024, artifacts/hba_tpu_large_w2048.json "analysis"); then
+    # by its relative pose error, the part the scene observes
+    flat_collapsed = cost_flat < cost_gt
+    rpe_h, rpe_f = q["hierarchy"][1][1], q["flat"][1][1]
+    log(f"  (c) flat solve {'below' if flat_collapsed else 'above'} the "
+        f"ground truth's cost: the hierarchy is held against it by "
+        f"{'RPE10 translation' if flat_collapsed else 'cost'}")
+    if flat_collapsed:
+        if not rpe_h < rpe_f:
+            raise AssertionError(f"hierarchy RPE10 {rpe_h} m not below "
+                                 f"the collapsed flat solve's {rpe_f} m")
+    elif not cost_hier < cost_flat:
+        raise AssertionError(f"hierarchy cost {cost_hier} not below the "
+                             f"flat banded cost {cost_flat}")
+    if not cost_hier / cost_gt < LARGE_JAX["flat_over_gt"]:
+        raise AssertionError(f"hierarchy cost ratio {cost_hier / cost_gt}"
+                             f" not below {LARGE_JAX['flat_over_gt']}")
+    if launches["csum_batched"] <= 0 or launches["rows_batched"] <= 0:
+        raise AssertionError(f"batched launches on the main path: "
+                             f"{launches}")
+    return rec
+
+
+def circle_graph():
+    """tests/test_loopclose.py::test_pose_graph_sparse_matches_dense's
+    circle in numpy and the port's lie: (R0, p0, edges, delta)."""
+    import torch
+
+    from balm_tpu_torch.ops import lie
+    from balm_tpu_torch.ops import pose_graph as PG
+    from balm_tpu_torch.pipelines import loopclose
+
+    W = PGO_CIRCLE_W
+    exp = lambda w: lie.so3_exp(torch.as_tensor(np.asarray(w, np.float64)))
+    rng = np.random.default_rng(3)
+    th = np.linspace(0, 2 * np.pi, W, endpoint=False)
+    p_gt = np.stack([10 * np.cos(th), 10 * np.sin(th), 0 * th], -1)
+    R_gt = np.stack([exp([0, 0, t]).numpy() for t in th])
+    R0 = np.stack([exp(rng.normal(0, 0.02, 3)).numpy() @ R_gt[k]
+                   for k in range(W)])
+    p0 = p_gt + rng.normal(0, 0.05, (W, 3))
+    li = np.asarray([0, 5, 12])
+    lj = np.asarray([W // 2, W // 2 + 5, W - 3])
+    Zr = np.einsum("eba,ebc->eac", R_gt[li], R_gt[lj])
+    Zp = np.einsum("eba,eb->ea", R_gt[li],
+                   p_gt[lj] - p_gt[li]) + rng.normal(0, 0.01, (3, 3))
+    edges = PG.concat_edges(
+        loopclose.chain_edges(R_gt, p_gt, 0.01, 0.02),
+        PG.edges_from_numpy((li, lj, Zr, Zp, np.full(3, 100.0),
+                             np.full(3, 100.0))))
+    delta = np.concatenate([np.full(W - 1, 1e30), np.full(3, 0.5)])
+    return R0, p0, edges, delta
+
+
+def anchor_pgo_phase(card, dev, scans, R0, p0):
+    """Phase 12 (d): hierarchical.run through its anchor pose-graph
+    stage, card against CPU in f64; pose_graph_optimize sparse against
+    dense."""
+    from balm_tpu_torch.ops import pose_graph as PG
+    from balm_tpu_torch.pipelines import hierarchical, loopclose
+
+    W = DB_CUT
+    i, j = 0, W - 1
+    Zr = R0[i].T @ R0[j]
+    Zp = R0[i].T @ (p0[j] - p0[i]) + np.array([1.5, 0.0, 0.0])
+    cfg = hierarchical.HierarchicalConfig(block=8, stride=6, cycles=1,
+                                          polish=False)
+    got = {}
+    for where, d in (("cuda", dev), ("cpu", "cpu")):
+        edges = PG.edges_from_numpy(([i], [j], Zr[None], Zp[None], [100.0],
+                                     [100.0]), device=d)
+        t0 = time.perf_counter()
+        got[where] = hierarchical.run(scans[:W], R0[:W], p0[:W], cfg,
+                                      scan_edges=edges, device=d)
+        log(f"  (d) hierarchical.run W={W} with a lifted loop edge on "
+            f"{where}: {time.perf_counter() - t0:.2f} s (host clock), "
+            f"anchor_pgo {got[where][2].get('anchor_pgo')}")
+    (Rc, pc, ic), (Rh, ph, ih) = got["cuda"], got["cpu"]
+    if "anchor_pgo" not in ic or "anchor_pgo" not in ih:
+        raise AssertionError("the anchor pose-graph stage did not run")
+    if ic["anchor_pgo"]["iters"] != ih["anchor_pgo"]["iters"]:
+        raise AssertionError("anchor PGO iterations differ card vs CPU")
+    dpose = max(float(np.max(np.abs(Rc - Rh))),
+                float(np.max(np.abs(pc - ph))))
+    log(f"  (d) anchor PGO branch card vs CPU: poses within {dpose:.3e} "
+        f"(tol {PGO_TOL:.0e}), loop drift "
+        f"{ic['loop_drift_effective_m']:.4f} m")
+    if not dpose <= PGO_TOL:
+        raise AssertionError(f"anchor PGO branch card vs CPU: {dpose}")
+
+    R0c, p0c, edges, delta = circle_graph()
+    t0 = time.perf_counter()
+    Rs, ps, i_s = loopclose.pose_graph_optimize(R0c, p0c, edges,
+                                                delta=delta)
+    t_sparse = time.perf_counter() - t0
+    Rd, pd, i_d = loopclose.pose_graph_optimize(R0c, p0c, edges,
+                                                delta=delta, solver="dense")
+    d_circ = max(float(np.max(np.abs(Rs - Rd))),
+                 float(np.max(np.abs(ps - pd))))
+    rel_cost = abs(i_s["final_cost"] - i_d["final_cost"]) / abs(
+        i_d["final_cost"])
+    log(f"  (d) pose_graph_optimize W={PGO_CIRCLE_W} circle: sparse "
+        f"{i_s['iters']} iterations ({i_s['accepted']} accepted, "
+        f"{t_sparse:.3f} s host), cost {i_s['initial_cost']:.4f} -> "
+        f"{i_s['final_cost']:.6f}; dense {i_d['iters']} ({i_d['accepted']})"
+        f"; poses within {d_circ:.3e}, cost {rel_cost:.3e} relative")
+    if (i_s["iters"] != i_d["iters"] or i_s["accepted"] != i_d["accepted"]
+            or not rel_cost <= 1e-10 or not d_circ <= 1e-9):
+        raise AssertionError(f"pose_graph_optimize sparse vs dense: "
+                             f"{i_s} {i_d} {d_circ}")
+    return {"pose_diff": dpose, "anchor_pgo": ic["anchor_pgo"],
+            "circle": {"pose_diff": d_circ, "cost_rel": rel_cost,
+                       "iters": i_s["iters"]}}
+
+
+def slice9(args, card, dev, counters):
+    """Phase 12: the batched launches, run_device_batched card vs CPU,
+    the W=2048 large-W protocol and the anchor pose-graph stage."""
+    t_phase = time.perf_counter()
+    rec = {"kernels": batched_kernels_phase(args, dev, card)}
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_hba_corridor(HBA_W, seed=1)
+    R0, p0 = perturb_drift(R_gt, p_gt, seed=2)
+    log(f"  W={HBA_W} corridor for (b) and (d): "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec["device_batched"] = device_batched_phase(card, dev, counters,
+                                                 scans, R0, p0, R_gt, p_gt)
+    rec["anchor_pgo"] = anchor_pgo_phase(card, dev, scans, R0, p0)
+    del scans
+    rec["large"] = large_hba_phase(card, dev, counters)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12: {rec['seconds']:.1f} s on {card}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -1991,7 +2647,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/11 device")
+    log("phase 1/12 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -2018,7 +2674,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/11 build")
+    log("phase 2/12 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -2027,7 +2683,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/11 scene")
+    log("phase 3/12 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -2044,7 +2700,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/11 kernels vs plain")
+    log("phase 4/12 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -2141,7 +2797,7 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/11 small slice: card vs plain CPU path")
+    log("phase 5/12 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -2160,7 +2816,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/11 slice: optimize_poses on the card")
+    log("phase 6/12 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -2238,7 +2894,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/11 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/12 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -2276,23 +2932,30 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/11 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/12 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
 
-    log("phase 9/11 slice 6: benchmark_realworld on the card")
+    log("phase 9/12 slice 6: benchmark_realworld on the card")
     rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
                   counters)
     log(f"  phase9: {json.dumps(rec9)}")
 
-    log("phase 10/11 slice 7: large windows and pose-graph edges on the card")
+    log("phase 10/12 slice 7: large windows and pose-graph edges on the card")
     rec10 = slice7(args, dev, card, counters, f, f_cpu, R0t, p0t)
     log(f"  phase10: {json.dumps(rec10)}")
 
-    log("phase 11/11 slice 8: the NEES experiment and the host hierarchy "
+    log("phase 11/12 slice 8: the NEES experiment and the host hierarchy "
         "on the card")
     rec11 = slice8(card, counters, dev, f, pk, R0t, p0t, ref)
     log(f"  phase11: {json.dumps(rec11)}")
+
+    log("phase 12/12 slice 9: the device-batched hierarchy and the anchor "
+        "pose-graph stage on the card")
+    counters.update({"csum_batched": pe.csum_packed_batched,
+                     "rows_batched": pe.rows_packed_batched})
+    rec12 = slice9(args, card, dev, counters)
+    log(f"  phase12: {json.dumps(rec12)}")
     # every module of the port is imported by now: still no jax, no
     # balm_tpu, no tests
     bad = [m for m in sys.modules
@@ -2353,6 +3016,11 @@ def main(argv=None) -> int:
             rec["wp640"] = rec_640
         kernels.append(rec)
     kernels.append(rec_b7)
+    for name, rec in rec12["kernels"].items():
+        rec["launches"] = rec12["large"]["hierarchy"]["launches"][name]
+        rec["launches_device_batched_w48"] = \
+            rec12["device_batched"]["launches"][name]
+        kernels.append(rec)
     log(f"  total {time.perf_counter() - t_all:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

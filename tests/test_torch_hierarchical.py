@@ -12,6 +12,9 @@ Tolerances:
   * batched_bottom=True against the per-block loop: poses within 1e-8
     (tests/test_hierarchical.py::test_batched_bottom_matches_loop's bar)
   * refeature_super_scan: the same kept points, exactly
+  * the anchor pose-graph branch: the same pose-graph iterations and
+    accepted steps, the provisional and final poses within 1e-8 (both
+    run the f64 graph solve and the f64 top solve on the same inputs)
 """
 
 import dataclasses
@@ -19,12 +22,14 @@ import pathlib
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from balm_tpu.config import SolverConfig as JSolverConfig
 from balm_tpu.config import VoxelConfig as JVoxelConfig
+from balm_tpu.ops import pose_graph as jPG
 from balm_tpu.pipelines import hierarchical as jh
 from balm_tpu_torch.config import SolverConfig, VoxelConfig
 from balm_tpu_torch.ops import pose_graph as tPG
@@ -105,19 +110,33 @@ def test_refeature_super_scan_matches_jax(scene):
     assert th.refeature_super_scan(tiny, VoxelConfig()) is tiny
 
 
-def test_anchor_pgo_branch_raises(scene):
+def test_anchor_pgo_branch_matches_jax(scene):
     """A lifted loop edge whose correction exceeds anchor_pgo_gate voxels
-    sends the JAX package to loopclose.pose_graph_optimize, which the
-    port does not have yet: it raises, naming ROADMAP.md A13a."""
+    sends both packages through the anchor pose-graph stage
+    (loopclose.pose_graph_optimize) before the top plane solve: the same
+    pose-graph iterations, poses within 1e-8."""
     scans, R0, p0 = scene
     i, j = 0, len(scans) - 1
     Zr = R0[i].T @ R0[j]
     Zp = R0[i].T @ (p0[j] - p0[i]) + np.array([1.5, 0.0, 0.0])
-    edges = tPG.edges_from_numpy(([i], [j], Zr[None], Zp[None], [100.0],
-                                  [100.0]))
+    fields = ([i], [j], Zr[None], Zp[None], [100.0], [100.0])
+    edges = tPG.edges_from_numpy(fields)
+    jedges = jPG.RelPoseEdges(*[jnp.asarray(np.asarray(x)) for x in fields])
     cfg = th.HierarchicalConfig(block=8, stride=6, cycles=1, polish=False)
-    with pytest.raises(NotImplementedError, match="A13a"):
-        th.run(scans, R0, p0, cfg, scan_edges=edges, device="cpu")
+    Rt, pt, it = th.run(scans, R0, p0, cfg, scan_edges=edges, device="cpu")
+    Rj, pj, ij = jh.run(scans, R0, p0,
+                        jh.HierarchicalConfig(block=8, stride=6, cycles=1,
+                                              polish=False),
+                        scan_edges=jedges)
+    assert "anchor_pgo" in it and it["anchor_pgo"]["iters"] > 0
+    assert it["anchor_pgo"]["iters"] == ij["anchor_pgo"]["iters"]
+    assert it["anchor_pgo"]["accepted"] == ij["anchor_pgo"]["accepted"]
+    assert it["loop_drift_effective_m"] > 0.5 * cfg.voxel.voxel_size
+    for a, b in zip(it["anchor_pgo_provisional"],
+                    ij["anchor_pgo_provisional"]):
+        assert np.max(np.abs(a - np.asarray(b))) <= 1e-8
+    assert np.max(np.abs(Rt - np.asarray(Rj))) <= 1e-8
+    assert np.max(np.abs(pt - np.asarray(pj))) <= 1e-8
     with pytest.raises(ValueError, match="stride"):
         th.run(scans, R0, p0, th.HierarchicalConfig(block=4, stride=6),
                device="cpu")
