@@ -1,16 +1,19 @@
 """One-call user API: voxelize -> (recenter) -> LM solve -> gauge.
 
-Counterpart: balm_tpu/api.py:30 (optimize_poses), with its dtype and
-backend dispatch (:82-94), the card in the TPU's place: dtype None takes
-float32 on the card and float64 elsewhere; 'auto' takes 'large' for
-W > large_threshold (600), else 'packed' in float32 on the card and
-'xla' otherwise.
+Counterpart: balm_tpu/api.py:30 (optimize_poses), with its loop
+closure (:50-79) and its dtype and backend dispatch (:82-94), the card
+in the TPU's place: dtype None takes float32 on the card and float64
+elsewhere; 'auto' takes 'large' for W > large_threshold (600), else
+'packed' in float32 on the card and 'xla' otherwise.
 
     import balm_tpu_torch
     R1, p1, info = balm_tpu_torch.optimize_poses(scans, R0, p0)
 
 Steps (what benchmark_realworld.cpp:144-236 does around
 BALM2::damping_iter):
+  0. with loop_closure=True: pipelines/loopclose.close_loops — place
+     recognition with its verification GN on the device, then the pose
+     graph on the host in float64 — warps the start poses first
   1. host voxelization with the native C++ engine (voxel/grid.py)
   2. float32: recenter_bodies in f64, then the cast to f32 on the device;
      float64: the raw moments
@@ -29,9 +32,7 @@ BALM2::damping_iter):
        never reach the card), then solver/large.damping_iter_large (the
        banded solve) over the span-compressed factors on the device
 
-It runs on the GPU unless the caller passes device='cpu'.  Loop closure
-(pipelines/loopclose.py) is not ported yet and raises
-NotImplementedError.
+It runs on the GPU unless the caller passes device='cpu'.
 """
 
 from __future__ import annotations
@@ -49,9 +50,6 @@ from .ops import packed_evaluate as pe
 from .solver import large, lm
 from .voxel import grid
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue A)"
-
-
 def optimize_poses(
     scans,
     R,
@@ -63,7 +61,7 @@ def optimize_poses(
     dtype: Optional[str] = None,    # None: 'float32' on the card
     large_threshold: int = 600,
     loop_closure: bool = False,
-    loop_config=None,
+    loop_config=None,        # pipelines.loopclose.LoopConfig when set
     verbose: bool = False,
     device="cuda",
 ):
@@ -79,11 +77,36 @@ def optimize_poses(
     residual and, for the dense backends, the launch counts of the csum
     and rows CUDA kernels during this call; for 'large' instead the span
     and the host seconds of the voxelization, from_dense and the solve.
+
+    loop_closure=True prepends place recognition and pose-graph warping
+    (pipelines/loopclose.close_loops) before the BA: needed once
+    cumulative drift exceeds the voxel size, where plane association
+    alone never forms the revisit constraints.  Detection's GN runs on
+    `device`, the pose graph on the host in float64; info["loop_closure"]
+    holds n_edges, n_verified and (when edges survived) pgo_iters.  When
+    no loop survives verification the input poses pass through
+    unchanged.  Without loop_closure a loop_config is ignored, as in the
+    JAX package.
     """
     W = len(scans)
-    if loop_closure or loop_config is not None:
-        raise NotImplementedError(f"loop_closure is {_ROADMAP}")
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("optimize_poses: no CUDA device; pass "
+                           "device='cpu' for the plain PyTorch path")
+    loop_info = None
+    if loop_closure and W > 0:
+        from .pipelines import loopclose as LC
+
+        lcfg = loop_config if loop_config is not None else LC.LoopConfig()
+        R, p, lc_edges, lc_info = LC.close_loops(
+            scans, np.asarray(R, np.float64), np.asarray(p, np.float64),
+            lcfg, verbose=verbose, device=device)
+        loop_info = {
+            "n_edges": 0 if lc_edges is None else int(lc_edges.i.shape[0]),
+            "n_verified": lc_info.get("n_verified", 0),
+        }
+        if "pgo" in lc_info:
+            loop_info["pgo_iters"] = lc_info["pgo"].get("iters")
     # the JAX package's rule (balm_tpu/api.py:82-93) with the card in the
     # TPU's place: float32 and 'packed' on it, float64 and 'xla' elsewhere
     on_card = device.type == "cuda"
@@ -102,9 +125,6 @@ def optimize_poses(
         raise ValueError(f"unknown backend {backend!r}")
     if W == 0:
         raise ValueError("optimize_poses needs at least one scan")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("optimize_poses: no CUDA device; pass "
-                           "device='cpu' for the plain PyTorch path")
 
     R = np.asarray(R, np.float64)
     p = np.asarray(p, np.float64)
@@ -115,6 +135,8 @@ def optimize_poses(
             "evaluate": {"packed": lm.auto_impl(len(scans)),
                          "xla": "factors", "large": "windowed"}[backend],
             "dtype": dtype, "device": str(device)}
+    if loop_info is not None:
+        info["loop_closure"] = loop_info
     if vres.num_planes == 0:
         info["status"] = "no_planes"
         return R, p, info

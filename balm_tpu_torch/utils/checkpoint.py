@@ -1,8 +1,8 @@
 """Checkpoint and resume of long BA runs; the reference's pose CSV.
 
 Counterpart: balm_tpu/utils/checkpoint.py (save :20, load :31,
-pack_lm_state :43, unpack_lm_state :49, write_pose_csv :96,
-read_pose_csv :113).  One .npz holds the trajectory, optionally the
+pack_lm_state :43, unpack_lm_state :49, save_odometry :57,
+load_odometry :83, write_pose_csv :96, read_pose_csv :113).  One .npz holds the trajectory, optionally the
 factor batch, and any extra arrays, such as a solver state from
 solver/lm.damping_iter_resumable.  The file format is the JAX
 package's, so a checkpoint written by either package loads in the
@@ -10,6 +10,8 @@ other.  Tensors are copied to the host; `load` returns numpy arrays.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 import torch
@@ -60,6 +62,45 @@ def unpack_lm_state(data: dict) -> dict | None:
     out = {k[3:]: np.asarray(v) for k, v in data.items()
            if k.startswith("lm_")}
     return out or None
+
+
+def save_odometry(path, i_next: int, R, p, vmap_state: dict,
+                  contribs: dict, info: dict):
+    """Persist the whole streaming-odometry loop state after scan
+    `i_next - 1` (pipelines/odometry.run): the trajectory so far, the
+    incremental VoxelPlaneMap, and the per-scan map contributions still
+    inside the BA window (needed for the contribution swaps).  Atomic:
+    written to a temporary file and renamed, so a kill mid-write never
+    leaves a truncated checkpoint.  The keys are the JAX package's."""
+    path = pathlib.Path(path)
+    data = {"odo_i_next": np.asarray(i_next),
+            "R": _np(R), "p": _np(p),
+            "odo_reg_points": np.asarray(info.get("reg_points", []),
+                                         np.int64),
+            "odo_ba_runs": np.asarray(info.get("ba_runs", 0))}
+    for k, v in vmap_state.items():
+        data[f"vmap_{k}"] = _np(v)
+    data["contrib_idx"] = np.asarray(sorted(contribs), np.int64)
+    for j, (keys, sums) in contribs.items():
+        data[f"contrib_{j}_k"] = _np(keys)
+        data[f"contrib_{j}_s"] = _np(sums)
+    # keep the .npz suffix on the temp file (savez appends it otherwise)
+    tmp = path.with_name(path.stem + ".tmp.npz")
+    np.savez_compressed(tmp, **data)
+    tmp.replace(path)
+
+
+def load_odometry(path):
+    """-> (i_next, R, p, vmap_state, contribs, info) saved by
+    save_odometry (by either package)."""
+    with np.load(path, allow_pickle=False) as z:
+        vmap_state = {k[5:]: z[k] for k in z.files if k.startswith("vmap_")}
+        contribs = {int(j): (z[f"contrib_{j}_k"], z[f"contrib_{j}_s"])
+                    for j in z["contrib_idx"]}
+        info = {"reg_points": list(z["odo_reg_points"]),
+                "ba_runs": int(z["odo_ba_runs"])}
+        return (int(z["odo_i_next"]), z["R"], z["p"], vmap_state, contribs,
+                info)
 
 
 def write_pose_csv(path, R, p, t=None):

@@ -176,19 +176,48 @@ failure raises and the script exits non-zero:
                association: no overflow, 2047 edges, the hierarchy's
                cost below 1.409 x cost_gt and below the flat solve's
                (by RPE10 when the flat solve slid below cost_gt)
+ 13. slice 10 - the front end: (a) optimize_poses(loop_closure=True) on
+               tests/test_loopclose.py's square-revisit scene (W=72,
+               101,850 points), card (the phase's main path: every
+               launch count set to 0 just before and read just after;
+               the BA after closure launches csum and rows) and CPU: the
+               same loop_closure info, the card's translation RSME below
+               0.2 x the start's, detect card vs CPU: the same edges,
+               Zr/Zp within TOL_LOOP_EDGE, and csum and rows against
+               their plain versions on the packed f32 factors that BA
+               starts from (W=72, the PGO'd poses); (b) loop_closure=True on
+               phase 3's 256-scan chain: no edge and bitwise phase 6's
+               poses, with detection's seconds; (c) the W=1200 city of
+               scripts/hba_city_demo.py: detect on the card with the JAX
+               package's n_verified and n_edges, close_loops' PGO cost
+               within CITY_COST_REL of JAX's, then hierarchical.run from
+               the PGO's poses (translation RSME below the PGO's); (d)
+               odometry.run on phase 3's scene (its first ODO_CUT scans
+               at 2 m per scan, printed) and at ODO_STEP m per scan for
+               ODO_SCANS scans (scans/s, drift, the GN of one pass of
+               register_scan, on the device arrays of its own
+               association helper, in ms by CUDA events and in kernels
+               by torch.profiler), its first
+               ODO_CUT scans card vs CPU within TOL_ODO and stopped and
+               resumed bit for bit, and async_ba over ODO_ASYNC scans
+               within the JAX test's bars of the synchronous run; (e) loam_front.run on
+               tests/test_loam_front.py's room sweeps, card vs CPU
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
 kernels' Htilde, B7's f32 Csum on the scene), `launches` counts the
 launches in the run of the kernel's own path (phase 9's realworld.run for
 csum and rows, with phase 6's optimize_poses count beside it as
-`launches_optimize_poses` and phase 11's packed NEES run_multi as
-`launches_nees_packed`; phase 7 for B4-B6, phase 8 (b) for B7; phase
+`launches_optimize_poses`, phase 11's packed NEES run_multi as
+`launches_nees_packed` and phase 13 (a)'s loop-closure BA as
+`launches_loop_closure`; phase 7 for B4-B6, phase 8 (b) for B7; phase
 12 (c)'s run_batched_consensus for the batched csum and rows, with
 12 (b)'s count as `launches_device_batched_w48`), and
 `err_by_output` holds the absolute and the relative (to max|plain|)
-error of every output (for the fused-Hessian kernels also under
-"random_W256_G11520", their errors on the random moments of phase 4;
+error of every output (for csum and rows also under "square_W72", their
+errors at phase 13 (a)'s shape, the packed factors its loop-closure BA
+starts from; for the fused-Hessian kernels under "random_W256_G11520",
+their errors on the random moments of phase 4;
 for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
 by dtype and residual_moments' time).  B4's and B5's `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are those of their default split (bf16x3);
@@ -2638,6 +2667,680 @@ def slice9(args, card, dev, counters):
 
 
 # --------------------------------------------------------------------------
+# phase 13: slice 10
+# --------------------------------------------------------------------------
+
+# (a) tests/test_loopclose.py's square-revisit scene and the JAX test's
+# calls (tests/test_api.py:75-99)
+LOOP_POINTS = 101850
+LOOP_TRANS_BAR = 0.2            # the card's BA translation RSME / init's
+# detection card vs CPU: float64 GN on both, the edges' Zr/Zp (and the
+# PGO'd poses of 13c's city, host f64 from those edges) within this
+TOL_LOOP_EDGE = 1e-9
+# (c) the JAX package's W=1200 city (artifacts/loopclose_city.json, CPU
+# f64), its detect and PGO re-taken with balm_tpu in float64 on a CPU
+# from this script's make_city(1200, seed=1) and perturb_cumulative(
+# seed=2) (`python3 scripts/loopclose_city_retake.py`: the scene bitwise
+# scripts/hba_city_demo.py's, 2,047,485 points; the record agrees on the
+# counts, its cost 220.51007449504488).  The hierarchy's RSME is the
+# record's (pgo_hier, not re-taken)
+CITY_W = 1200
+CITY_JAX = {"n_verified": 129, "n_edges": 58, "pgo_iters": 15,
+            "pgo_final_cost": 220.51007449505232,
+            "pgo_rsme_deg_m": (0.9756162345970423, 0.5340002039767578),
+            "hier_rsme_deg_m": (0.9563278974603109, 0.2939311600627012)}
+CITY_COST_REL = 1e-6
+# (d) odometry: phase 3's generator, first at its own 2 m spacing (a cut
+# of ODO_CUT scans, to show whether the front end tracks it), then at
+# ODO_STEP m spacing for ODO_SCANS scans
+ODO_SCANS = 256
+ODO_STEP = 0.5
+ODO_CUT = 24
+ODO_STOP = 12
+ODO_ASYNC = 64
+ASYNC_BARS = (0.05, 0.005)     # deg, m: tests/test_odometry.py:194-195
+TOL_ODO = 1e-8                 # card vs CPU over ODO_CUT scans, f64
+ODO_GN_REPS = 20
+# (e) tests/test_loam_front.make_room_sweeps(W=8), card vs CPU
+LOAM_W = 8
+TOL_LOAM = 1e-9
+LOAM_BARS = (0.5, 0.03)        # deg, m: tests/test_loam_front.py:63-64
+
+
+def _so3_exp_np(w):
+    import torch
+
+    from balm_tpu_torch.ops import lie
+
+    return lie.so3_exp(torch.as_tensor(np.asarray(w, np.float64))).numpy()
+
+
+def _yaw(y):
+    c, s = np.cos(y), np.sin(y)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _patch_world(centers, axes, p, R, rng, pts_per, vis):
+    """Body-frame scans of square patches (0.9 m, 4 mm thick) within
+    `vis` m of each pose — the patch world of tests/test_loopclose.py and
+    scripts/hba_city_demo.py."""
+    scans = []
+    for w in range(len(p)):
+        pts = []
+        near = np.linalg.norm(centers[:, :2] - p[w][:2], axis=1) < vis
+        for g in np.nonzero(near)[0]:
+            uv = rng.uniform(-0.45, 0.45, size=(pts_per, 2))
+            th = rng.normal(0, 0.004, size=(pts_per, 1))
+            local = np.concatenate([uv, th], -1)
+            world = local[:, np.roll(np.arange(3), axes[g] + 1)] + centers[g]
+            pts.append((world - p[w]) @ R[w])
+        scans.append(np.concatenate(pts) if pts else np.zeros((0, 3)))
+    return scans
+
+
+def _streets(segments):
+    """Wall patches flanking each street, floor tiles on it, cross
+    patches every 3 m pinning the along-street mode."""
+    centers, axes = [], []
+    for a, b in segments:
+        d = (b - a) / np.linalg.norm(b - a)
+        n = np.array([-d[1], d[0]])
+        for t in np.arange(0.5, np.linalg.norm(b - a), 1.0):
+            xy = a + t * d
+            for off in (-1.5, 1.5):
+                q = xy + off * n
+                centers.append([q[0], q[1], 0.5])
+                axes.append(1 if abs(n[1]) > 0.5 else 0)
+            centers.append([xy[0], xy[1], -0.5])
+            axes.append(2)
+            if int(t) % 3 == 0:
+                off = 1.2 if (int(t) // 3) % 2 == 0 else -1.2
+                q = xy + off * n
+                centers.append([q[0] + 0.5 * d[0], q[1] + 0.5 * d[1], 0.5])
+                axes.append(0 if abs(n[1]) > 0.5 else 1)
+    return np.asarray(centers, float), np.asarray(axes)
+
+
+def make_loop_scene(W=72, side=12.0, laps=1.25, seed=0, pts_per=50,
+                    vis=4.0):
+    """tests/test_loopclose.make_loop_scene: a square courtyard route
+    traversed 1.25 laps, the last quarter revisiting the first."""
+    rng = np.random.default_rng(seed)
+    cs = [np.array([0.0, 0.0]), np.array([side, 0.0]),
+          np.array([side, side]), np.array([0.0, side])]
+    segs = [(cs[k], cs[(k + 1) % 4]) for k in range(4)]
+    perim = 4 * side
+    p = np.zeros((W, 3))
+    yaw = np.zeros(W)
+    for w, s in enumerate((np.arange(W) / W) * laps * perim):
+        s = s % perim
+        k = min(int(s // side), 3)
+        a, b = segs[k]
+        t = (s - k * side) / side
+        d = (b - a) / side
+        p[w, :2] = a + t * (b - a)
+        yaw[w] = np.arctan2(d[1], d[0])
+    R = np.stack([_yaw(y) for y in yaw])
+    centers, axes = _streets(segs)
+    return R, p, _patch_world(centers, axes, p, R, rng, pts_per, vis)
+
+
+def perturb_cumulative(R, p, seed, rot_step_deg=0.06, trans_step=0.02):
+    """tests/test_loopclose._perturb_cumulative (its defaults) and
+    scripts/hba_city_demo.perturb_cumulative (0.05 deg, 7 mm): a random
+    walk of rotation and translation errors."""
+    rng = np.random.default_rng(seed)
+    W = len(R)
+    dw = np.cumsum(rng.normal(0, rot_step_deg / 57.3, (W, 3)), axis=0)
+    dt = np.cumsum(rng.normal(0, trans_step, (W, 3)), axis=0)
+    return np.einsum("wab,wbc->wac", _so3_exp_np(dw), R), p + dt
+
+
+def make_city(W, nx=2, ny=2, side=16.0, seed=0, pts_per=55, vis=4.0):
+    """scripts/hba_city_demo.make_city: streets on the grid lines of an
+    nx x ny block city; the route walks every horizontal street, then
+    every vertical one — every intersection is visited twice."""
+    rng = np.random.default_rng(seed)
+    Lx, Ly = nx * side, ny * side
+    way = []
+    for j in range(ny + 1):
+        y = j * side
+        xs = [0.0, Lx] if j % 2 == 0 else [Lx, 0.0]
+        way.append(([xs[0], y], [xs[1], y]))
+    for i in range(nx + 1):
+        x = i * side if ny % 2 == 0 else (nx - i) * side
+        ys = [Ly, 0.0] if i % 2 == 0 else [0.0, Ly]
+        way.append(([x, ys[0]], [x, ys[1]]))
+    segs = [(np.asarray(a, float), np.asarray(b, float)) for a, b in way]
+    lens = [np.linalg.norm(b - a) for a, b in segs]
+    total = sum(lens)
+    p = np.zeros((W, 3))
+    yaw = np.zeros(W)
+    acc = np.cumsum([0.0] + lens)
+    for w, s in enumerate(np.arange(W) / W * total):
+        k = min(np.searchsorted(acc, s, side="right") - 1, len(segs) - 1)
+        a, b = segs[k]
+        t = (s - acc[k]) / max(lens[k], 1e-9)
+        d = (b - a) / max(lens[k], 1e-9)
+        p[w, :2] = a + t * (b - a)
+        yaw[w] = np.arctan2(d[1], d[0])
+    p += rng.normal(0, 0.01, (W, 3))
+    R = np.zeros((W, 3, 3))
+    for w in range(W):
+        c, sn = np.cos(yaw[w]), np.sin(yaw[w])
+        R[w] = np.array([[c, -sn, 0], [sn, c, 0], [0, 0, 1]])
+    grid_lines = ([(np.array([0.0, j * side]), np.array([Lx, j * side]))
+                   for j in range(ny + 1)]
+                  + [(np.array([i * side, 0.0]), np.array([i * side, Ly]))
+                     for i in range(nx + 1)])
+    centers, axes = _streets(grid_lines)
+    return R, p, _patch_world(centers, axes, p, R, rng, pts_per, vis)
+
+
+def make_room_sweeps(W=8, seed=0, noise=0.002):
+    """tests/test_loam_front.make_room_sweeps: two walls meeting in a
+    vertical edge plus a floor, as ordered scanlines, along a smooth
+    trajectory."""
+    rng = np.random.default_rng(seed)
+    lines_w = []
+    for z in np.linspace(0.3, 2.5, 17):
+        t = np.linspace(-1, 1, 160)
+        pts = np.where(
+            t[:, None] < 0,
+            np.stack([np.zeros_like(t), -t * 4.0, np.full_like(t, z)], -1),
+            np.stack([t * 4.0, np.zeros_like(t), np.full_like(t, z)], -1))
+        lines_w.append(pts)
+    for x in np.linspace(0.4, 3.6, 7):
+        y = np.linspace(0.2, 4.0, 120)
+        lines_w.append(np.stack([np.full_like(y, x), y,
+                                 np.zeros_like(y)], -1))
+    R_gt = [np.eye(3)]
+    p_gt = [np.array([2.0, 2.0, 1.2])]
+    for i in range(1, W):
+        w = np.deg2rad(1.2) * rng.standard_normal(3)
+        R_gt.append(R_gt[-1] @ _so3_exp_np(w))
+        p_gt.append(p_gt[-1] + 0.05 * rng.standard_normal(3))
+    R_gt = np.stack(R_gt)
+    p_gt = np.stack(p_gt)
+    sweeps = []
+    for i in range(W):
+        sweeps.append([((ln + rng.normal(0, noise, ln.shape)) - p_gt[i])
+                       @ R_gt[i] for ln in lines_w])
+    return R_gt, p_gt, sweeps
+
+
+def _deg(r):
+    return (r[0] * 57.3, r[1])
+
+
+def _edge_diff(et, eh):
+    """Card and CPU detections: the same (i, j) list, then the largest
+    Zr/Zp difference."""
+    if (et is None) != (eh is None):
+        raise AssertionError("one device found loop edges, the other none")
+    if et is None:
+        return 0.0
+    if not (np.array_equal(et.i.numpy(), eh.i.numpy())
+            and np.array_equal(et.j.numpy(), eh.j.numpy())):
+        raise AssertionError(f"loop edges differ: card "
+                             f"{list(zip(et.i.tolist(), et.j.tolist()))}, "
+                             f"CPU {list(zip(eh.i.tolist(), eh.j.tolist()))}")
+    return max(float((et.Zr - eh.Zr).abs().max()),
+               float((et.Zp - eh.Zp).abs().max()))
+
+
+def _stages(dinfo):
+    return ", ".join(f"{k} {v:.3f}" for k, v in dinfo["seconds"].items())
+
+
+def loop_scene_phase(card, dev, counters):
+    """13a: optimize_poses(loop_closure=True) on the square-revisit
+    scene, card (the phase's main path, every launch count set to 0 just
+    before and read just after) and CPU."""
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.config import SolverConfig, VoxelConfig
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import packed as packed_mod
+    from balm_tpu_torch.pipelines import loopclose as LC
+    from balm_tpu_torch.voxel import grid
+
+    R_gt, p_gt, scans = make_loop_scene()
+    R0, p0 = perturb_cumulative(R_gt, p_gt, seed=3)
+    n_pts = int(sum(len(s) for s in scans))
+    if n_pts != LOOP_POINTS:
+        raise AssertionError(f"the square scene has {n_pts} points, the "
+                             f"JAX test's {LOOP_POINTS}")
+    lcfg = LC.LoopConfig(max_dist=5.0, query_every=2)
+    kw = dict(loop_closure=True, loop_config=lcfg,
+              voxel=VoxelConfig(voxel_size=1.0),
+              solver=SolverConfig(max_iters=30, u_init=0.01,
+                                  min_planes_per_pose=1))
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Rc, pc, ic = balm_tpu_torch.optimize_poses(scans, R0, p0, **kw)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    # the first call on the card pays its libraries' first use; a second
+    # one times the warm path
+    t0 = time.perf_counter()
+    balm_tpu_torch.optimize_poses(scans, R0, p0, **kw)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, _, ih = balm_tpu_torch.optimize_poses(scans, R0, p0, device="cpu",
+                                             **kw)
+    t_cpu = time.perf_counter() - t0
+    rs0 = _deg(rsme(R0, p0, R_gt, p_gt))
+    rs1 = _deg(rsme(Rc, pc, R_gt, p_gt))
+    log(f"  (a) square revisit: W={len(scans)}, {n_pts} points; card "
+        f"{t_card:.2f} s (first call), {t_warm:.2f} s (second), CPU "
+        f"{t_cpu:.2f} s (host clock); card info "
+        f"{json.dumps(ic)}; CPU loop_closure {ic['loop_closure']}")
+    log(f"  (a) RSME init {rs0[0]:.4f} deg {rs0[1]:.4f} m -> card BA "
+        f"{rs1[0]:.4f} deg {rs1[1]:.4f} m (bar {LOOP_TRANS_BAR} x init); "
+        f"launches {launches}")
+    if ic["loop_closure"] != ih["loop_closure"]:
+        raise AssertionError(f"loop closure differs: card "
+                             f"{ic['loop_closure']}, CPU {ih['loop_closure']}")
+    if ic["loop_closure"]["n_edges"] < 3 or ic["status"] != "ok":
+        raise AssertionError(f"square revisit: {ic}")
+    if not rs1[1] < LOOP_TRANS_BAR * rs0[1]:
+        raise AssertionError(f"card BA translation RSME {rs1[1]} not below "
+                             f"{LOOP_TRANS_BAR} x {rs0[1]}")
+    if launches["csum"] <= 0 or launches["rows"] <= 0:
+        raise AssertionError(f"loop-closure BA launches {launches}")
+    # the detections apart: the same edges, Zr/Zp in f64
+    t0 = time.perf_counter()
+    et, it = LC.detect(scans, R0, p0, lcfg, device=dev)
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t0
+    eh, _ = LC.detect(scans, R0, p0, lcfg, device="cpu")
+    d = _edge_diff(et, eh)
+    log(f"  (a) detect on the card {t_det:.3f} s ({_stages(it)}): edges "
+        f"{list(zip(et.i.tolist(), et.j.tolist()))} on both, Zr/Zp card vs "
+        f"CPU within {d:.3e} (tol {TOL_LOOP_EDGE:.0e})")
+    if not d <= TOL_LOOP_EDGE:
+        raise AssertionError(f"loop edges card vs CPU: {d}")
+    # B1/B2 at the shape this BA gives them: the packed f32 factors of
+    # the PGO'd poses the BA starts from, built as optimize_poses builds
+    # them (voxelize, recenter_bodies, f32 on the card, pack_factors)
+    Rp, pp, _, _ = LC.close_loops(scans, R0, p0, lcfg, edges=et,
+                                  detect_info=it, device=dev)
+    vres = grid.voxelize(list(scans), Rp, pp, kw["voxel"], dtype=np.float64)
+    if vres.num_planes != ic["num_planes"]:
+        raise AssertionError(f"{vres.num_planes} planes at the PGO'd poses, "
+                             f"the BA's {ic['num_planes']}")
+    pk = packed_mod.pack_factors(Fmod.factors_from_numpy(
+        Fmod.recenter_bodies(vres.factors), device=dev,
+        dtype=torch.float32))
+    pose = packed_mod.pad_poses(
+        torch.tensor(Rp, dtype=torch.float32, device=dev),
+        torch.tensor(pp, dtype=torch.float32, device=dev), pk.wp)
+    kcheck, _ = check_kernels(pose, pk, f"square W={len(scans)} "
+                              f"G={vres.num_planes}")
+    return {"card_s": t_card, "card_warm_s": t_warm, "cpu_s": t_cpu,
+            "detect_card_s": t_det, "detect_stages_s": it["seconds"],
+            "kernel_check": kcheck,
+            "loop_closure": ic["loop_closure"], "launches": launches,
+            "rmse_init_deg_m": list(rs0), "rmse_ba_deg_m": list(rs1),
+            "edge_diff": d, "iters": ic["iters"],
+            "residual": [ic["residual_initial"], ic["residual"]]}
+
+
+def no_loop_phase(card, dev, scans, R0, p0, vcfg, ref):
+    """13b: loop_closure=True on phase 3's 256-scan chain (no revisit):
+    no edge, and bitwise phase 6's poses."""
+    import torch
+
+    import balm_tpu_torch
+    from balm_tpu_torch.pipelines import loopclose as LC
+
+    R1, p1 = ref
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R2, p2, info = balm_tpu_torch.optimize_poses(
+        scans, R0, p0, voxel=vcfg, backend="packed", loop_closure=True)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edges, dinfo = LC.detect(scans, R0, p0, device=dev)
+    t_det = time.perf_counter() - t0
+    log(f"  (b) {len(scans)}-scan chain with loop_closure=True: {t_all:.2f} s "
+        f"(host clock), detection alone {t_det:.2f} s ({dinfo['n_queries']} "
+        f"queries; {_stages(dinfo)}); loop_closure {info['loop_closure']}")
+    if info["loop_closure"]["n_edges"] != 0 or edges is not None:
+        raise AssertionError(f"loop edges on a chain with no revisit: {info}")
+    if not (np.array_equal(R2, R1) and np.array_equal(p2, p1)):
+        raise AssertionError("loop_closure=True without edges moved phase "
+                             "6's poses")
+    log("  (b) poses bitwise phase 6's")
+    return {"wall_s": t_all, "detect_s": t_det,
+            "detect_stages_s": dinfo["seconds"]}
+
+
+def city_phase(card, dev):
+    """13c: the W=1200 city: detect, close_loops, then hierarchical.run
+    from the PGO's poses; the JAX package's counts and PGO cost."""
+    import torch
+
+    from balm_tpu_torch.config import VoxelConfig
+    from balm_tpu_torch.pipelines import hierarchical
+    from balm_tpu_torch.pipelines import loopclose as LC
+
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_city(CITY_W, seed=1)
+    R0, p0 = perturb_cumulative(R_gt, p_gt, seed=2, rot_step_deg=0.05,
+                                trans_step=0.007)
+    n_pts = int(sum(len(s) for s in scans))
+    log(f"  (c) city W={CITY_W}, {n_pts} points (scene "
+        f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    edges, dinfo = LC.detect(scans, R0, p0, LC.LoopConfig(), device=dev)
+    torch.cuda.synchronize()
+    t_det = time.perf_counter() - t0
+    n_edges = 0 if edges is None else int(edges.i.shape[0])
+    got = {k: dinfo.get(k, 0) for k in ("n_queries", "n_scored",
+                                        "n_verified", "n_drift_rejected",
+                                        "n_pcm_rejected")}
+    log(f"  (c) detect on the card: {t_det:.2f} s (host clock: "
+        f"{_stages(dinfo)}), {n_edges} "
+        f"edges, {got}; the JAX package (CPU): n_verified "
+        f"{CITY_JAX['n_verified']}, n_edges {CITY_JAX['n_edges']}")
+    if (got["n_verified"], n_edges) != (CITY_JAX["n_verified"],
+                                        CITY_JAX["n_edges"]):
+        raise AssertionError(f"city detection: {got}, {n_edges} edges")
+    t0 = time.perf_counter()
+    Rp, pp, _, cinfo = LC.close_loops(scans, R0, p0, LC.LoopConfig(),
+                                      edges=edges, detect_info=dinfo,
+                                      device=dev)
+    t_pgo = time.perf_counter() - t0
+    pgo = cinfo["pgo"]
+    rel = abs(pgo["final_cost"] - CITY_JAX["pgo_final_cost"]) \
+        / CITY_JAX["pgo_final_cost"]
+    rs0 = _deg(rsme(R0, p0, R_gt, p_gt))
+    rs_pgo = _deg(rsme(Rp, pp, R_gt, p_gt))
+    log(f"  (c) PGO (host f64): {t_pgo:.2f} s, {pgo['iters']} iterations, "
+        f"cost {pgo['initial_cost']:.6f} -> {pgo['final_cost']:.10f} (JAX "
+        f"{CITY_JAX['pgo_final_cost']:.10f}, rel {rel:.2e}, tol "
+        f"{CITY_COST_REL:.0e}); RSME init {rs0[0]:.4f} deg "
+        f"{rs0[1]:.4f} m -> PGO {rs_pgo[0]:.4f} deg {rs_pgo[1]:.4f} m (JAX "
+        f"{CITY_JAX['pgo_rsme_deg_m'][0]:.4f} deg "
+        f"{CITY_JAX['pgo_rsme_deg_m'][1]:.4f} m)")
+    if not rel <= CITY_COST_REL:
+        raise AssertionError(f"city PGO cost {pgo['final_cost']} vs JAX "
+                             f"{CITY_JAX['pgo_final_cost']}")
+    hcfg = hierarchical.HierarchicalConfig(
+        block=16, stride=12, cycles=3, polish=False,
+        voxel=VoxelConfig(voxel_size=1.0),
+        top_voxel=VoxelConfig(voxel_size=1.0))
+    t0 = time.perf_counter()
+    Rh, ph, hinfo = hierarchical.run(scans, Rp, pp, hcfg, device=dev)
+    torch.cuda.synchronize()
+    t_hier = time.perf_counter() - t0
+    rs_h = _deg(rsme(Rh, ph, R_gt, p_gt))
+    log(f"  (c) hierarchical.run from the PGO's poses: {t_hier:.2f} s "
+        f"(host clock), {hinfo['n_blocks']} blocks, reverted "
+        f"{hinfo.get('cycles_reverted', 0)}, RSME {rs_h[0]:.4f} deg "
+        f"{rs_h[1]:.4f} m on {card}; the JAX record "
+        f"{CITY_JAX['hier_rsme_deg_m'][0]:.4f} deg "
+        f"{CITY_JAX['hier_rsme_deg_m'][1]:.4f} m")
+    if not rs_h[1] < CITY_JAX["pgo_rsme_deg_m"][1]:
+        raise AssertionError(f"city hierarchy translation RSME {rs_h[1]} "
+                             f"not below the PGO's "
+                             f"{CITY_JAX['pgo_rsme_deg_m'][1]}")
+    return {"points": n_pts, "detect_s": t_det,
+            "detect_stages_s": dinfo["seconds"], "n_edges": n_edges,
+            **got, "pgo_s": t_pgo, "pgo": pgo, "pgo_cost_rel": rel,
+            "rmse_init_deg_m": list(rs0), "rmse_pgo_deg_m": list(rs_pgo),
+            "hier_s": t_hier, "rmse_hier_deg_m": list(rs_h),
+            "hier_cycles_reverted": hinfo.get("cycles_reverted", 0)}
+
+
+def _drift(R, p, R_gt, p_gt):
+    """(final position error m, max position error m, final rotation
+    error deg) against the ground truth (both start at the truth)."""
+    err = np.linalg.norm(p - p_gt, axis=1)
+    dR = np.einsum("ba,bc->ac", R_gt[-1], R[-1])
+    ang = np.arccos(np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0))
+    return float(err[-1]), float(err.max()), float(np.rad2deg(ang))
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _gn_timing(card, dev, scans, R_gt, p_gt):
+    """One registration of scan 10 against a map of scans 0-9 at the
+    truth: register_scan's host-clock ms, the GN of one association pass
+    by CUDA events, and its kernel launches by torch.profiler."""
+    import torch
+
+    from balm_tpu_torch.pipelines import odometry as O
+    from balm_tpu_torch.voxel import grid
+
+    cfg = O.OdometryConfig()
+    vmap = O.VoxelPlaneMap(cfg.voxel_size, cfg.plane_ratio,
+                           cfg.min_plane_points, line_ratio=cfg.line_ratio)
+    for k in range(10):
+        vmap.insert(scans[k] @ R_gt[k].T + p_gt[k])
+    R_start, p_start = R_gt[10], p_gt[10] + np.array([0.05, -0.03, 0.02])
+    O.register_scan(scans[10], R_start, p_start, vmap, cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        O.register_scan(scans[10], R_start, p_start, vmap, cfg, device=dev)
+    torch.cuda.synchronize()
+    reg_ms = (time.perf_counter() - t0) / reps * 1e3
+    # the GN of register_scan's first pass, on the padded device arrays
+    # that register_scan's own association helper builds for it
+    pts = grid.down_sample_voxel(scans[10], cfg.downsample)
+    n_used, planes, lines = O.associate(pts, R_start, p_start, vmap, cfg,
+                                        torch.device(dev))
+    n = int(planes[3].sum())
+    R_t = torch.as_tensor(R_start, device=dev)
+    p_t = torch.as_tensor(p_start, device=dev)
+    m, ml = len(planes[0]), 0 if lines is None else len(lines[0])
+    nl = n_used - n
+    gn = lambda: O.gn_pass(R_t, p_t, planes, lines, cfg)
+    gn_ms = time_ms(gn, iters=ODO_GN_REPS)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        gn()
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies)
+    cuda = torch.autograd.DeviceType.CUDA
+    evts = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda]
+    n_kernels = sum(e.count for e in evts)
+    dev_ms = sum(_device_us(e) for e in evts) / 1e3
+    log(f"  (d) one registration (scan 10 vs a 10-scan map, {len(pts)} "
+        f"points after downsampling, {n} plane + {nl} line matches, "
+        f"buckets {m}/{ml}): register_scan {reg_ms:.3f} ms (host clock); "
+        f"the GN of one pass ({cfg.reg_iters} iterations) {gn_ms:.3f} ms "
+        f"(CUDA events), {n_kernels} kernels, {dev_ms:.3f} ms of device "
+        f"time (torch.profiler) on {card}")
+    return {"register_ms": reg_ms, "gn_pass_ms": gn_ms,
+            "gn_pass_kernels": n_kernels, "gn_pass_device_ms": dev_ms,
+            "matches": [n, nl], "buckets": [m, ml]}
+
+
+def odometry_phase(card, dev, seed, scans2, R2, p2):
+    """13d: odometry.run on phase 3's scene (2 m apart, its first ODO_CUT
+    scans) and on the same generator at ODO_STEP m for ODO_SCANS scans;
+    card against CPU and the stop/resume check on the first ODO_CUT."""
+    import tempfile
+
+    import torch
+
+    from balm_tpu_torch.pipelines import odometry as O
+
+    rec = {}
+    t0 = time.perf_counter()
+    Rc, pc, ic = O.run(scans2[:ODO_CUT], R_init=R2[0], p_init=p2[0],
+                       device=dev)
+    t2 = time.perf_counter() - t0
+    d2 = _drift(Rc, pc, R2[:ODO_CUT], p2[:ODO_CUT])
+    log(f"  (d) phase 3's scene (2 m per scan), first {ODO_CUT} scans: "
+        f"{t2:.2f} s, final position error {d2[0]:.3f} m of "
+        f"{np.linalg.norm(p2[ODO_CUT - 1] - p2[0]):.1f} m travelled, "
+        f"rotation {d2[2]:.3f} deg, reg_points median "
+        f"{np.median(ic['reg_points']):.0f} min {min(ic['reg_points'])}, "
+        f"{ {k: v for k, v in ic.items() if k != 'reg_points'} }")
+    rec["step2m_cut"] = {"scans": ODO_CUT, "seconds": t2,
+                         "drift_m": d2[0], "rot_deg": d2[2],
+                         **{k: v for k, v in ic.items()
+                            if k != "reg_points"}}
+
+    t0 = time.perf_counter()
+    R_gt, p_gt, scans = make_scene(ODO_SCANS, seed, step=ODO_STEP)
+    log(f"  (d) make_scene({ODO_SCANS}, step={ODO_STEP}): "
+        f"{sum(len(s) for s in scans)} points "
+        f"({time.perf_counter() - t0:.1f} s)")
+    rec["gn"] = _gn_timing(card, dev, scans, R_gt, p_gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    R, p, info = O.run(scans, R_init=R_gt[0], p_init=p_gt[0], device=dev)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    d = _drift(R, p, R_gt, p_gt)
+    travelled = float(np.linalg.norm(p_gt[-1] - p_gt[0]))
+    rs = _deg(rsme(R, p, R_gt, p_gt))
+    counts = {k: info.get(k, 0) for k in ("ba_runs", "yaw_rescues",
+                                          "rot_searches", "skipped_inserts")}
+    log(f"  (d) odometry.run, {ODO_SCANS} scans at {ODO_STEP} m: {t_run:.2f} "
+        f"s (host clock), {ODO_SCANS / t_run:.2f} scans/s; final position "
+        f"error {d[0]:.4f} m (max {d[1]:.4f}) over {travelled:.1f} m, "
+        f"rotation {d[2]:.4f} deg, RSME {rs[0]:.4f} deg {rs[1]:.4f} m; "
+        f"{counts}; reg_points median {np.median(info['reg_points']):.0f} "
+        f"min {min(info['reg_points'])} on {card}")
+    rec["full"] = {"scans": ODO_SCANS, "step_m": ODO_STEP, "seconds": t_run,
+                   "scans_per_s": ODO_SCANS / t_run, "drift_m": d[0],
+                   "max_err_m": d[1], "rot_deg": d[2], "travelled_m":
+                   travelled, "rmse_deg_m": list(rs), **counts}
+    if not d[0] < 0.01 * travelled:
+        raise AssertionError(f"odometry drift {d[0]} m over {travelled} m")
+
+    kw = dict(R_init=R_gt[0], p_init=p_gt[0])
+    t0 = time.perf_counter()
+    Rc, pc, ic = O.run(scans[:ODO_CUT], device=dev, **kw)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Rh, ph, ih = O.run(scans[:ODO_CUT], device="cpu", **kw)
+    t_cpu = time.perf_counter() - t0
+    if ic["reg_points"] != ih["reg_points"]:
+        k = next(i for i, (a, b) in enumerate(zip(ic["reg_points"],
+                                                  ih["reg_points"])) if a != b)
+        raise AssertionError(f"card and CPU odometry first differ at scan "
+                             f"{k + 1}: reg_points {ic['reg_points'][k]} vs "
+                             f"{ih['reg_points'][k]}")
+    dpose = max(float(np.abs(Rc - Rh).max()), float(np.abs(pc - ph).max()))
+    log(f"  (d) first {ODO_CUT} scans card vs CPU ({t_card:.2f} s on the "
+        f"card, {t_cpu:.2f} s on the CPU): the same reg_points and ba_runs ({ic['ba_runs']}), poses "
+        f"within {dpose:.3e} (tol {TOL_ODO:.0e})")
+    if ic["ba_runs"] != ih["ba_runs"] or not dpose <= TOL_ODO:
+        raise AssertionError(f"odometry card vs CPU: {dpose}, {ic}, {ih}")
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d) / "odo.npz"
+        _, _, i1 = O.run(scans[:ODO_CUT], device=dev, checkpoint_path=path,
+                         checkpoint_every=4, stop_after_scan=ODO_STOP, **kw)
+        Rr, pr, ir = O.run(scans[:ODO_CUT], device=dev, checkpoint_path=path,
+                           checkpoint_every=4, resume=True, **kw)
+    if not (i1.get("stopped_at") == ODO_STOP
+            and ir.get("resumed_at") == ODO_STOP + 1
+            and np.array_equal(Rr, Rc) and np.array_equal(pr, pc)
+            and ir["reg_points"] == ic["reg_points"]):
+        raise AssertionError(f"resume on the card is not bitwise: "
+                             f"{np.abs(Rr - Rc).max()}, {i1}, {ir}")
+    log(f"  (d) stopped after scan {ODO_STOP}, resumed at "
+        f"{ir['resumed_at']}: the uninterrupted trajectory bit for bit")
+    # async_ba: the window BA on a worker thread; where its solve lands
+    # depends on timing, so it is held to the JAX package's bars against
+    # the synchronous run, not compared bitwise
+    runs = {}
+    for mode in (False, True):
+        t0 = time.perf_counter()
+        Ra, pa, ia = O.run(scans[:ODO_ASYNC], O.OdometryConfig(async_ba=mode),
+                           device=dev, **kw)
+        torch.cuda.synchronize()
+        runs[mode] = (*_deg(rsme(Ra, pa, R_gt[:ODO_ASYNC],
+                                 p_gt[:ODO_ASYNC])), ia["ba_runs"],
+                      time.perf_counter() - t0)
+    (rot0, tr0, _, s0), (rot1, tr1, n1, s1) = runs[False], runs[True]
+    log(f"  (d) async_ba over {ODO_ASYNC} scans: RSME {rot1:.4f} deg "
+        f"{tr1:.4f} m in {s1:.2f} s, {n1} BAs; synchronous {rot0:.4f} deg "
+        f"{tr0:.4f} m in {s0:.2f} s (bars: 2 x max(sync, {ASYNC_BARS[0]} "
+        f"deg / {ASYNC_BARS[1]} m))")
+    if not (n1 >= 2 and rot1 < 2.0 * max(rot0, ASYNC_BARS[0])
+            and tr1 < 2.0 * max(tr0, ASYNC_BARS[1])):
+        raise AssertionError(f"async_ba on the card: {runs}")
+    rec["async"] = {"scans": ODO_ASYNC, "rmse_deg_m": [rot1, tr1],
+                    "sync_rmse_deg_m": [rot0, tr0], "ba_runs": n1,
+                    "seconds": s1, "sync_seconds": s0}
+    rec["cut_card_vs_cpu"] = dpose
+    rec["cut_card_s"] = t_card
+    rec["cut_cpu_s"] = t_cpu
+    return rec
+
+
+def loam_phase(card, dev):
+    """13e: loam_front.run on make_room_sweeps(W=LOAM_W), card vs CPU."""
+    import torch
+
+    from balm_tpu_torch.pipelines import loam_front
+
+    R_gt, p_gt, sweeps = make_room_sweeps(W=LOAM_W)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Rc, pc, ic = loam_front.run(sweeps, device=dev)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Rh, ph, ih = loam_front.run(sweeps, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    dpose = max(float(np.abs(Rc - Rh).max()), float(np.abs(pc - ph).max()))
+    Rr = np.einsum("ba,nbc->nac", R_gt[0], R_gt)
+    pr = (p_gt - p_gt[0]) @ R_gt[0]
+    rs = _deg(rsme(Rc, pc, Rr, pr))
+    log(f"  (e) loam_front.run W={LOAM_W}: card {t_card:.3f} s, CPU "
+        f"{t_cpu:.3f} s (host clock); surf {ic['surf_used']}, edge "
+        f"{ic['edge_used']} on both; poses within {dpose:.3e} (tol "
+        f"{TOL_LOAM:.0e}); RSME {rs[0]:.4f} deg {rs[1]:.4f} m")
+    if ic != ih or not dpose <= TOL_LOAM:
+        raise AssertionError(f"loam front end card vs CPU: {dpose}, {ic}, "
+                             f"{ih}")
+    if not (rs[0] < LOAM_BARS[0] and rs[1] < LOAM_BARS[1]):
+        raise AssertionError(f"loam front end RSME {rs} above {LOAM_BARS}")
+    return {"card_s": t_card, "cpu_s": t_cpu, "pose_diff": dpose,
+            "rmse_deg_m": list(rs)}
+
+
+def slice10(args, card, dev, counters, scans, R_gt, p_gt, R0, p0, vcfg,
+            ref):
+    """Phase 13: the front end (loop closure, odometry, LOAM).  `scans`,
+    `R_gt`, `p_gt`, `R0`, `p0`: phase 3's scene; `ref`: phase 6's poses
+    (R1, p1)."""
+    t_phase = time.perf_counter()
+    rec = {"loop": loop_scene_phase(card, dev, counters)}
+    rec["no_loop"] = no_loop_phase(card, dev, scans, R0, p0, vcfg, ref)
+    rec["city"] = city_phase(card, dev)
+    rec["odometry"] = odometry_phase(card, dev, args.seed, scans, R_gt, p_gt)
+    rec["loam"] = loam_phase(card, dev)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {rec['seconds']:.1f} s on {card}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -2647,7 +3350,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/12 device")
+    log("phase 1/13 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -2674,7 +3377,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/12 build")
+    log("phase 2/13 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -2683,7 +3386,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/12 scene")
+    log("phase 3/13 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -2700,7 +3403,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/12 kernels vs plain")
+    log("phase 4/13 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -2797,7 +3500,7 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/12 small slice: card vs plain CPU path")
+    log("phase 5/13 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -2816,7 +3519,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/12 slice: optimize_poses on the card")
+    log("phase 6/13 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -2894,7 +3597,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/12 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/13 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -2932,30 +3635,36 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/12 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/13 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
 
-    log("phase 9/12 slice 6: benchmark_realworld on the card")
+    log("phase 9/13 slice 6: benchmark_realworld on the card")
     rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
                   counters)
     log(f"  phase9: {json.dumps(rec9)}")
 
-    log("phase 10/12 slice 7: large windows and pose-graph edges on the card")
+    log("phase 10/13 slice 7: large windows and pose-graph edges on the card")
     rec10 = slice7(args, dev, card, counters, f, f_cpu, R0t, p0t)
     log(f"  phase10: {json.dumps(rec10)}")
 
-    log("phase 11/12 slice 8: the NEES experiment and the host hierarchy "
+    log("phase 11/13 slice 8: the NEES experiment and the host hierarchy "
         "on the card")
     rec11 = slice8(card, counters, dev, f, pk, R0t, p0t, ref)
     log(f"  phase11: {json.dumps(rec11)}")
 
-    log("phase 12/12 slice 9: the device-batched hierarchy and the anchor "
+    log("phase 12/13 slice 9: the device-batched hierarchy and the anchor "
         "pose-graph stage on the card")
     counters.update({"csum_batched": pe.csum_packed_batched,
                      "rows_batched": pe.rows_packed_batched})
     rec12 = slice9(args, card, dev, counters)
     log(f"  phase12: {json.dumps(rec12)}")
+
+    log("phase 13/13 slice 10: the front end (loop closure, odometry, "
+        "LOAM) on the card")
+    rec13 = slice10(args, card, dev, counters, scans, R_gt, p_gt, R0, p0,
+                    vcfg, (R1, p1))
+    log(f"  phase13: {json.dumps(rec13)}")
     # every module of the port is imported by now: still no jax, no
     # balm_tpu, no tests
     bad = [m for m in sys.modules
@@ -2988,7 +3697,10 @@ def main(argv=None) -> int:
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
         if name in ("csum", "rows"):
+            rec["err_by_output"]["square_W72"] = \
+                rec13["loop"]["kernel_check"][name]
             rec["launches_optimize_poses"] = launches[name]
+            rec["launches_loop_closure"] = rec13["loop"]["launches"][name]
             rec["launches_nees_packed"] = \
                 rec11["nees"]["packed"]["launches"][name]
         if name == "hess_v2":

@@ -166,9 +166,12 @@ def test_optimize_poses_runs_on_cuda_or_raises():
 
 def test_unported_paths_raise():
     R_gt, p_gt, scans = make_long_scene(W=4, n_planes=8, seed=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        balm_tpu_torch.optimize_poses(scans, R_gt, p_gt, device="cpu",
-                                      loop_closure=True)
+    # loop closure is ported (pipelines/loopclose.py): four scans hold
+    # no revisit, so it reports no edge
+    _, _, info = balm_tpu_torch.optimize_poses(scans, R_gt, p_gt,
+                                               device="cpu",
+                                               loop_closure=True)
+    assert info["loop_closure"]["n_edges"] == 0
     with pytest.raises(ValueError, match="at least one scan"):
         balm_tpu_torch.optimize_poses([], np.zeros((0, 3, 3)),
                                       np.zeros((0, 3)), device="cpu")
