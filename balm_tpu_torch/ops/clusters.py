@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import segments
+
 
 def homogenize(points):
     """(..., 3) -> (..., 4) by appending 1."""
@@ -33,9 +35,13 @@ def from_points(points, seg_ids=None, num_segments=None):
     outer = q[..., :, None] * q[..., None, :]
     if seg_ids is None:
         return outer.sum(0)
-    out = torch.zeros((num_segments, 4, 4), dtype=points.dtype,
-                      device=points.device)
-    return out.index_add_(0, seg_ids, outer)
+    # a stable sort, then each segment summed in row order: the same bits
+    # on every run (a float index_add_ adds in the order its atomics land
+    # on the card)
+    order = torch.argsort(seg_ids, stable=True)
+    return segments.sorted_segment_sum(
+        outer[order].reshape(-1, 16), seg_ids[order],
+        num_segments=num_segments).reshape(num_segments, 4, 4)
 
 
 def transform(C, T):

@@ -19,6 +19,12 @@ def pose_rsme(R_est, p_est, R_gt, p_gt):
     """
     R_est, p_est, R_gt, p_gt = (torch.as_tensor(x)
                                 for x in (R_est, p_est, R_gt, p_gt))
+    # mixed precisions promote, as jnp's do (a float32 solve against
+    # float64 ground truth)
+    dt = R_est.dtype
+    for x in (p_est, R_gt, p_gt):
+        dt = torch.promote_types(dt, x.dtype)
+    R_est, p_est, R_gt, p_gt = (x.to(dt) for x in (R_est, p_est, R_gt, p_gt))
     dR = torch.einsum("nji,njk->nik", R_gt, R_est)
     w = lie.so3_log(dR)
     rot = torch.sqrt(torch.mean(torch.sum(w * w, dim=-1)))

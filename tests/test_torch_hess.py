@@ -46,14 +46,31 @@ from test_torch_kernels import _jax_inputs, _relmax, _t
 MULTI = dict(seed=31, G=12, W=20, sparse_obs=True, with_fix=True)
 
 
+_MULTI_INPUTS = {}
+
+
+def _multi_inputs():
+    """_jax_inputs(MULTI), built once per module: the JAX side of every
+    test on MULTI."""
+    if "jax" not in _MULTI_INPUTS:
+        _MULTI_INPUTS["jax"] = _jax_inputs(MULTI)
+    return _MULTI_INPUTS["jax"]
+
+
 def _hess_inputs(case):
     """(JAX arrays, port tensors) of (pose, mom, cen, aux) at trial
-    poses."""
-    _, _, _, packed, pose = _jax_inputs(case)
+    poses; MULTI's built once per module."""
+    if case is MULTI and "hess" in _MULTI_INPUTS:
+        return _MULTI_INPUTS["hess"]
+    _, _, _, packed, pose = (_multi_inputs() if case is MULTI
+                             else _jax_inputs(case))
     csum = jpe.csum_packed_xla(pose, packed.mom, packed.cen, packed.cfix)
     _, aux = jpe._aux_from_csum(csum, packed, 1e-9)
     j = (pose, packed.mom, packed.cen, aux)
-    return j, [_t(x) for x in j]
+    out = j, [_t(x) for x in j]
+    if case is MULTI:
+        _MULTI_INPUTS["hess"] = out
+    return out
 
 
 def _check_hjd(out, ref, h_tol):
@@ -150,7 +167,7 @@ def test_split_follows_hess_precision_as_in_jax(impl, monkeypatch):
     """evaluate_packed hands the fused kernel JAX's split for each
     hess_precision (pallas_evaluate.py:999-1018, with lm.py:195's map of
     the strings): None and 'highest' give 'f32', 'high' gives 'bf16x3'."""
-    R32, p32, f32, packed, _ = _jax_inputs(MULTI)
+    R32, p32, f32, packed, _ = _multi_inputs()
     pkt = tpk.pack_factors(
         tF.factors_from_numpy([np.asarray(x) for x in f32]))
     seen = {"jax": [], "port": []}
@@ -174,7 +191,7 @@ def test_evaluate_pallas3_bf16x3_matches_jax():
     """At hess_precision 'high' (JAX: Precision.HIGH) evaluate_packed
     runs B5 with the bf16x3 split on both sides: H within 1e-5 of its
     max, as hess_packed_v3's own bar."""
-    R32, p32, f32, packed, _ = _jax_inputs(MULTI)
+    R32, p32, f32, packed, _ = _multi_inputs()
     res0, J0, H0 = jpe.evaluate_packed(R32, p32, packed, impl="pallas3",
                                        interpret=True,
                                        hess_precision=lax.Precision.HIGH)
@@ -195,7 +212,7 @@ def test_hess_xla_matches_jax():
 @pytest.mark.parametrize("impl", ["xla", "hybrid", "pallas", "pallas2",
                                   "pallas3"])
 def test_evaluate_packed_matches_jax(impl):
-    R32, p32, f32, packed, _ = _jax_inputs(MULTI)
+    R32, p32, f32, packed, _ = _multi_inputs()
     res0, J0, H0 = jpe.evaluate_packed(R32, p32, packed, impl=impl,
                                        interpret=True)
     pkt = tpk.pack_factors(
@@ -220,7 +237,7 @@ def test_pallas2_dispatch_rule(monkeypatch):
     for Wp in (600, 608):
         assert tpe.pallas2_to_pallas3(Wp) == (
             2 * 36 * Wp * Wp * 4 > 100 * 1024 * 1024)
-    R32, p32, f32, _, _ = _jax_inputs(MULTI)
+    R32, p32, f32, _, _ = _multi_inputs()
     f = tF.factors_from_numpy([np.asarray(x) for x in f32])
     calls = []
     v3 = tpe.hess_packed_v3
@@ -238,7 +255,7 @@ def test_pallas2_dispatch_rule(monkeypatch):
 
 
 def test_chunked_evaluate_matches_unchunked():
-    R32, p32, f32, _, _ = _jax_inputs(MULTI)
+    R32, p32, f32, _, _ = _multi_inputs()
     f = tF.factors_from_numpy([np.asarray(x) for x in f32])
     pk = tpk.pack_factors(f)
     R, p = _t(R32), _t(p32)
