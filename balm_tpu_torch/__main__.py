@@ -286,7 +286,8 @@ def build_parser():
                    help="coarse-to-fine voxel sizes, e.g. 4,2,1")
     p.add_argument("--mesh", type=int, metavar="N",
                    help="shard the plane axis over the first N devices "
-                        "(factor-parallel solve; not ported yet)")
+                        "(factor-parallel solve; with --cpu N virtual CPU "
+                        "shards)")
     common(p)
     p.set_defaults(fn=_cmd_realworld)
 

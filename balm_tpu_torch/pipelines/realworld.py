@@ -20,6 +20,16 @@ summary dict.  `run` works on the card unless the caller passes
 device='cpu'; the device association never falls back to the host
 voxelizer (its capacity retry is the JAX package's, and is logged in
 `assoc_attempts_s`).
+
+With `mesh_devices` N > 1 (or an explicit `mesh=`) the solve is
+factor-parallel (JAX :181-235): the factors are plane-sharded over the
+mesh (parallel/sharded.py) and the LM runs the 'xla' evaluator per
+shard, whatever `backend` says ('auto', 'packed', 'pallas' -> 'xla', as
+JAX's mesh path).  On device='cuda' the mesh is the first N visible
+cards, and fewer raise, as JAX's visible-devices check; on 'cpu' it is N
+virtual CPU shards.  `mesh=` takes any mesh, e.g. virtual shards of one
+card (sharded.make_mesh(devices=[torch.device('cuda')] * 4)), the
+counterpart of JAX's process-global device list.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 from ..config import SolverConfig, VoxelConfig
 from ..io import pcd, planecloud, poses
 from ..ops import factors as Fmod
+from ..parallel import sharded
 from ..solver import lm
 from ..utils import checkpoint
 from ..voxel import device as vdev
@@ -68,11 +79,26 @@ class RealworldConfig:
     # maps — merge, stages, export — and a key that fits; the host
     # engine otherwise), 'device', 'native' or 'numpy'
     assoc_backend: str = "auto"
-    # factor-parallel execution over N devices: not ported yet
+    # factor-parallel execution over N devices (0 or 1: one device)
     mesh_devices: int = 0
     # coarse-to-fine stages (coarse_to_fine.default_stages() or a list of
     # VoxelConfig); None = single resolution at `voxel`
     stages: Optional[Sequence[VoxelConfig]] = None
+
+
+def _visible_mesh(n, device):
+    """n shards: the first n visible cards on device 'cuda' (fewer raise,
+    JAX :186-191's check), n virtual shards of the CPU on 'cpu'."""
+    if device.type != "cuda":
+        return sharded.make_mesh(devices=[device] * n)
+    count = torch.cuda.device_count()
+    if count < n:
+        raise ValueError(
+            f"mesh_devices={n} but only {count} devices visible (pass "
+            f"mesh=sharded.make_mesh(devices=[torch.device('cuda')] * {n}) "
+            f"for virtual shards of one card, or device='cpu' for a "
+            f"virtual CPU mesh)")
+    return sharded.make_mesh(n)
 
 
 def load(cfg: RealworldConfig):
@@ -93,18 +119,21 @@ def load(cfg: RealworldConfig):
 
 
 def run(cfg: RealworldConfig = RealworldConfig(), *, verbose: bool = False,
-        device="cuda"):
+        device="cuda", mesh=None):
     """The experiment on `device`; returns its summary dict (status,
     planes, iterations, residuals, the LMResult, and the load,
-    association and solve seconds)."""
+    association and solve seconds; with a mesh also mesh_devices and
+    planes_per_shard).  mesh: a parallel.sharded.Mesh for the
+    factor-parallel solve (default: the one cfg.mesh_devices asks
+    for)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("realworld.run: no CUDA device; pass "
                            "device='cpu' for the plain PyTorch path")
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
-        raise NotImplementedError(
-            "mesh_devices > 1 is not ported yet (ROADMAP.md, queue A, "
-            "item 15)")
+    if (mesh is not None and cfg.mesh_devices > 1
+            and mesh.size != cfg.mesh_devices):
+        raise ValueError(f"mesh_devices={cfg.mesh_devices} but the mesh "
+                         f"has {mesh.size} shards")
     tdt = getattr(torch, cfg.dtype)
     sync = (lambda: torch.cuda.synchronize(device)) \
         if device.type == "cuda" else (lambda: None)
@@ -186,16 +215,31 @@ def run(cfg: RealworldConfig = RealworldConfig(), *, verbose: bool = False,
         return summary
 
     backend = cfg.backend
+    f_solve = f
+    if mesh is None and cfg.mesh_devices > 1:
+        mesh = _visible_mesh(cfg.mesh_devices, device)
+    if mesh is not None:
+        f_solve = sharded.shard_factors(f, mesh)
+        if backend in ("auto", "packed", "pallas"):
+            backend = "xla"      # the mesh path runs the 'xla' evaluator
+        summary.update(mesh_devices=mesh.size,
+                       planes_per_shard=f_solve.num_planes // mesh.size)
     if backend == "auto":
         backend = ("packed" if (device.type == "cuda" and cfg.centered
                                 and tdt == torch.float32) else "xla")
     Rt = torch.tensor(R, dtype=tdt, device=device)
     pt = torch.tensor(p, dtype=tdt, device=device)
-    sync()
+    Rs, ps, devs = Rt, pt, {device}
+    if mesh is not None:
+        Rs, ps = sharded.replicate(Rt, mesh), sharded.replicate(pt, mesh)
+        devs |= set(mesh.devices)
+    sync_solve = lambda: [torch.cuda.synchronize(d) for d in devs
+                          if d.type == "cuda"]
+    sync_solve()
     t0 = time.perf_counter()
-    res = lm.damping_iter(Rt, pt, f, cfg.solver, centered=cfg.centered,
+    res = lm.damping_iter(Rs, ps, f_solve, cfg.solver, centered=cfg.centered,
                           backend=backend)
-    sync()
+    sync_solve()
     t_solve = time.perf_counter() - t0
 
     summary.update(
@@ -209,7 +253,8 @@ def run(cfg: RealworldConfig = RealworldConfig(), *, verbose: bool = False,
     )
 
     if cfg.export_dir is not None:
-        # real per-iteration timestamps: a second, timed solve
+        # real per-iteration timestamps: a second, timed solve (on the
+        # unsharded factors, as JAX's)
         res_t, t_iter = lm.damping_iter_timed(
             Rt, pt, f, cfg.solver, centered=cfg.centered, backend=backend)
         out = pathlib.Path(cfg.export_dir)

@@ -36,6 +36,7 @@ from ..config import SolverConfig
 from ..ops import factors_windowed as FW
 from ..ops import lie
 from ..ops.precision import fp32_matmul
+from ..parallel import sharded
 from . import banded as _banded
 
 _CHECK_EVERY = 16
@@ -144,21 +145,34 @@ class LargeLMResult(NamedTuple):
     trace_cg: np.ndarray      # CG iterations used per LM iteration (int32)
 
 
-def windowed_ops(wf: FW.WindowedFactors, W: int,
-                 supernode: int | None = None, edges=None) -> LMOps:
-    """Single-device engine over WindowedFactors (JAX :155-237).
+def windowed_ops(wf, W: int, supernode: int | None = None,
+                 edges=None) -> LMOps:
+    """Single-device or plane-sharded engine over WindowedFactors (JAX
+    :155-237).
+
+    wf: WindowedFactors on one device, or parallel.sharded.ShardedFactors
+    of them (plane-sharded, sorted by base, R and p on the mesh's home
+    device): each shard's parts stay on its device; res, J and diag(H)
+    are summed over the shards, `matvec` sums the shards' H v, `precond`
+    their block-Jacobi blocks and `direct` their bands, each with one
+    Mesh.psum (JAX's GSPMD inserts the same psums).
 
     edges: optional ops.pose_graph.RelPoseEdges — SE(3) relative-pose
-    factors added to the plane cost.  Every edge must satisfy i < j and
-    j - i < span so its Hessian blocks stay inside the band.
+    factors added to the plane cost, on the home device.  Every edge must
+    satisfy i < j and j - i < span so its Hessian blocks stay inside the
+    band.
 
-    The (plane, slot) -> pose map and the edges' scatter orders are
-    sorted once here; every pose reduction of the solve is a segment sum over
-    them (deterministic on the card).
+    The (plane, slot) -> pose map of each shard and the edges' scatter
+    orders are sorted once here; every pose reduction of the solve is a
+    segment sum over them (deterministic on the card).
     """
     B = max(int(wf.span), 1) if supernode is None else int(supernode)
     S = int(wf.span)
-    seg = FW.pose_segments(wf.base, S, W)
+    if isinstance(wf, sharded.ShardedFactors):
+        shards, psum = wf.shards, wf.mesh.psum
+    else:
+        shards, psum = (wf,), (lambda xs: xs[0])
+    segs = [FW.pose_segments(s.base, S, W) for s in shards]
     if edges is not None:
         from ..ops import pose_graph as PG
 
@@ -173,11 +187,18 @@ def windowed_ops(wf: FW.WindowedFactors, W: int,
             return PG.scatter_rows(pose_ids, torch.cat([a, b]), W,
                                    pose_order)
 
+    def on_shards(fn, parts, *home):
+        """psum of fn(shard parts, *home tensors on the shard's device)."""
+        return psum([fn(q, *(x.to(q.J.device) for x in home))
+                     for q in parts])
+
     def evaluate(R, p):
-        parts = FW.evaluate_windowed(R, p, wf, seg=seg)
-        diagH = FW.hess_diag(parts, W)
-        res = parts.res
-        J = parts.J
+        parts = [FW.evaluate_windowed(R.to(s.C.device), p.to(s.C.device), s,
+                                      seg=seg)
+                 for s, seg in zip(shards, segs)]
+        diagH = on_shards(lambda q: FW.hess_diag(q, W), parts)
+        res = psum([q.res for q in parts])
+        J = psum([q.J for q in parts])
         if edges is not None:
             eres, g, h = PG.evaluate_relpose_blocks(R, p, edges)
             res = res + eres.to(res.dtype)
@@ -189,7 +210,9 @@ def windowed_ops(wf: FW.WindowedFactors, W: int,
         return res, J.reshape(-1), diagH.reshape(-1), parts
 
     def residual(R, p):
-        res = FW.residual_only_windowed(R, p, wf, seg=seg)
+        res = psum([FW.residual_only_windowed(R.to(s.C.device),
+                                              p.to(s.C.device), s, seg=seg)
+                    for s, seg in zip(shards, segs)])
         if edges is not None:
             res = res + PG.relpose_cost(R, p, edges).to(res.dtype)
         return res
@@ -198,7 +221,7 @@ def windowed_ops(wf: FW.WindowedFactors, W: int,
         v2 = v.reshape(W, 6)
         if edges is not None:
             parts, h = parts
-        out = FW.hvp(parts, v2, W)
+        out = on_shards(lambda q, x: FW.hvp(q, x, W), parts, v2)
         if edges is not None:
             vi, vj = v2[ei], v2[ej]
             hi = (torch.sum(h[:, :6, :6] * vi[:, None], -1)
@@ -211,7 +234,7 @@ def windowed_ops(wf: FW.WindowedFactors, W: int,
     def precond(parts, u, Dd):
         if edges is not None:
             parts, h = parts
-        A = FW.block_jacobi(parts, W, 0.0)
+        A = on_shards(lambda q: FW.block_jacobi(q, W, 0.0), parts)
         if edges is not None:
             A = A + pose_sum(h[:, :6, :6], h[:, 6:, 6:]).to(A.dtype)
         return A + u * Dd.reshape(W, 6)[..., None] * torch.eye(
@@ -223,7 +246,7 @@ def windowed_ops(wf: FW.WindowedFactors, W: int,
     def direct(parts, Dd, u, J):
         if edges is not None:
             parts, h = parts
-        Hband = FW.band_hessian(parts, W)
+        Hband = on_shards(lambda q: FW.band_hessian(q, W), parts)
         if edges is not None:
             hd = Hband.dtype
             Hband[:, 0] += pose_sum(h[:, :6, :6], h[:, 6:, 6:]).to(hd)
@@ -247,8 +270,11 @@ def damping_iter_large(R, p, wf: FW.WindowedFactors,
     (bavoxel.hpp:1069-1166); the dense solve replaced by the banded LU
     (linear_solver='banded', default: exact dense-quality steps,
     O(W span^2)) or block-Jacobi PCG ('pcg', cg_iters / cg_tol).  R, p
-    and wf's tensors on one device; the signature and defaults are the
-    JAX package's (balm_tpu/solver/large.py:241-266).
+    and wf's tensors on one device, or wf plane-sharded
+    (parallel.sharded.shard_factors) with R and p on the mesh's home
+    device, where JAX's GSPMD takes the plane-sharded factors; the
+    signature and defaults are the JAX package's
+    (balm_tpu/solver/large.py:241-266).
 
     edges: optional ops.pose_graph.RelPoseEdges folded into cost,
     gradient and Hessian; requires i < j, j - i < span (checked here on

@@ -58,6 +58,7 @@ from ..ops import lie
 from ..ops import packed as packed_mod
 from ..ops import packed_evaluate as pe
 from ..ops.precision import fp32_matmul
+from ..parallel import sharded
 from . import large
 
 
@@ -176,8 +177,11 @@ def damping_iter(R, p, f: F.PlaneFactors, cfg: SolverConfig = SolverConfig(),
                  hess_precision: str = "high", packed_impl: str = "auto",
                  chunk_planes: int = 0) -> LMResult:
     """Run the LM loop.  R (W,3,3), p (W,3) float32 or float64 tensors;
-    f: PlaneFactors with tensor leaves on the same device.  The signature
-    and defaults are the JAX package's (balm_tpu/solver/lm.py:69-75).
+    f: PlaneFactors with tensor leaves on the same device, or
+    parallel.sharded.ShardedFactors with R and p on the mesh's home
+    device (backend 'xla': each evaluate runs per shard and sums the
+    shards', where JAX's GSPMD partitions it).  The signature and
+    defaults are the JAX package's (balm_tpu/solver/lm.py:69-75).
 
     backend: 'xla' (ops/factors.py's evaluators, any float dtype; with
     centered=True the factors must be body-recentered and carry centers)
@@ -258,18 +262,24 @@ def _packed_evals(f, hess_precision, packed_impl, chunk_planes,
 
 def _xla_evals(f, centered, use_lapack_eigh, update):
     """(eval_full, eval_res) of the XLA-formulated evaluators
-    (balm_tpu/solver/lm.py:241-254)."""
-    def eval_full(R, p):
-        T = lie.pose_matrix(R, p)
+    (balm_tpu/solver/lm.py:241-254).  For sharded factors each evaluates
+    every shard on its device and sums the shards' results
+    (ShardedFactors.map_sum), as GSPMD partitions JAX's."""
+    def full_one(T, fs):
         if update == "right":
-            return F.evaluate_right(T, f, use_lapack_eigh=use_lapack_eigh)
-        return F.evaluate(T, f, centered=centered,
+            return F.evaluate_right(T, fs, use_lapack_eigh=use_lapack_eigh)
+        return F.evaluate(T, fs, centered=centered,
                           use_lapack_eigh=use_lapack_eigh)
 
-    def eval_res(R, p):
-        return F.residual_only(lie.pose_matrix(R, p), f, centered=centered,
+    def res_one(T, fs):
+        return F.residual_only(T, fs, centered=centered,
                                use_lapack_eigh=use_lapack_eigh)
-    return eval_full, eval_res
+
+    if isinstance(f, sharded.ShardedFactors):
+        return (lambda R, p: f.map_sum(full_one, lie.pose_matrix(R, p)),
+                lambda R, p: f.map_sum(res_one, lie.pose_matrix(R, p)))
+    return (lambda R, p: full_one(lie.pose_matrix(R, p), f),
+            lambda R, p: res_one(lie.pose_matrix(R, p), f))
 
 
 def _with_edges(eval_full, eval_res, edges):
@@ -303,6 +313,12 @@ def _build_loop(R, p, f, cfg, centered, use_lapack_eigh, update,
     ft = np.float32 if R.dtype == torch.float32 else np.float64
     eps = ft(np.finfo(ft).eps)
     degenerate = bool(int(f.planes_per_pose().min()) < cfg.min_planes_per_pose)
+    if backend == "packed" and isinstance(f, sharded.ShardedFactors):
+        raise ValueError(
+            "sharded factors run backend='xla': the mesh path takes the "
+            "XLA-formulated evaluator, as the JAX package's does "
+            "(balm_tpu/pipelines/realworld.py:194-195); the sharded "
+            "packed evaluate is parallel.sharded_pallas")
     if backend == "packed":
         eval_full, eval_res, jw = _packed_evals(
             f, hess_precision, packed_impl, chunk_planes, linear_solver,

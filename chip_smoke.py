@@ -228,7 +228,11 @@ failure raises and the script exits non-zero:
                virtual against an in-process virtual.run (the same
                scalars), virtual --cpu (within CLI_TOL), realworld on
                phase 9's scene (its residuals bitwise phase 9's),
-               realworld --mesh 2 (a non-zero exit), optimize with its
+               realworld --mesh 2 on its first CLI_MESH_SCANS scans (a
+               non-zero exit with the visible-devices message where
+               fewer than two cards are visible, else a run on two
+               cards), realworld --cpu --mesh 2 (mesh_devices 2),
+               optimize with its
                CSV read back, odometry with a checkpoint and then
                --resume (the same trajectory) and consistency, each
                other command exiting 0 with one JSON line last;
@@ -236,6 +240,33 @@ failure raises and the script exits non-zero:
                its report printed, and device_trace around one
                BALM2-f32 iteration, whose CUDA kernels include B1's and
                B2's
+ 15. slice 12 - the multi-device paths on MESH_N = 4 shards: the first 4
+               cards where 4 are visible, else 4 virtual shards of the
+               card (logged).  (a) On phase 3's scene in f64 'xla':
+               evaluate_shard_map and damping_iter on plane-sharded
+               factors against unsharded at the JAX package's bars
+               (TOL_SHARD), ms per f64 evaluate at 1, 2 and 4 shards;
+               (b) evaluate_packed_sharded at every impl against the
+               unsharded evaluate_packed of the same impl (1e-4): each
+               kernel (B1 with every impl; B2, B6, B4, B5 with theirs)
+               launched exactly once per shard per evaluate, at
+               Wp=256, Gp=2944 per shard, the same bits twice, sharded and
+               unsharded ms; (c) realworld.run(cfg, mesh=...) in f64
+               (JAX's default dtype and solver, phase 9's voxels) on
+               phase 9's written scene against the unsharded 'xla' run:
+               the same planes and iterations, residual_final within
+               1e-6, t_solve_s of both; (d) the W=CORRIDOR_W corridor
+               made well-posed (vis 1.6, pillars every 2 m), f64, its
+               first SHARD_LM_ITERS LM iterations with CG converged: the
+               pose-sharded LM and the plane-sharded damping_iter_large
+               (banded; pcg) against the unsharded solves at the bars of
+               tests/test_pose_sharded.py, banded also at
+               W=SHARD_BANDED_W, ms per LM iteration of each;
+               (e) mesh.init_distributed as a one-rank NCCL group: an
+               all_reduce of (a)'s H the same bits, timed with its bytes;
+               the two-process demo (parallel/multihost_demo.py) sharing
+               the card over gloo, at its bars; (f) graft_entry.entry(),
+               dryrun_multichip(4) and scaling.measure([1, 2, 4])
 
 The line before the last is {"kernels": [...]}: `max_abs_err` is that of
 the kernel's main output (csum's moments, rows' rank rows, the Hessian
@@ -259,7 +290,9 @@ by dtype and residual_moments' time).  B4's and B5's `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are those of their default split (bf16x3);
 `by_split` holds both, B4's 'f32' with hess_v1's numbers (one
 instantiation), B5's with the times of its two stages, and B5's
-`wp640` its numbers at W=640, G=4096.  The last line is
+`wp640` its numbers at W=640, G=4096.  `launches_sharded` (B1, B2,
+B4-B6) counts each kernel's launches in one sharded evaluate per impl
+of phase 15 (b), at the shard shape `sharded_shape`.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -3442,6 +3475,7 @@ CUT_TOL = 1e-9
 CLI_ODO_SCANS = 16
 CLI_ODO_EVERY = 8
 CLI_OPT_SCANS = 64
+CLI_MESH_SCANS = 32      # realworld --mesh 2, on the card and with --cpu
 CLI_NEES_SCANS = 30
 CLI_TOL = 1e-9          # virtual card vs --cpu (f64, two devices)
 
@@ -4007,8 +4041,11 @@ def cli_phase(dev, scans3, R_gt3, p_gt3, R03, p03, rec9):
     against an in-process virtual.run, realworld on phase 9's scene
     against phase 9's run, optimize with its CSV read back, consistency,
     odometry stopped and resumed through its checkpoint, virtual --cpu,
-    and realworld --mesh 2, which must fail."""
+    realworld --mesh 2 (a non-zero exit with fewer than two visible
+    cards) and realworld --cpu --mesh 2 (two virtual CPU shards)."""
     import tempfile
+
+    import torch
 
     from balm_tpu_torch import __main__ as cli
     from balm_tpu_torch.config import VoxelConfig
@@ -4050,10 +4087,26 @@ def cli_phase(dev, scans3, R_gt3, p_gt3, R03, p03, rec9):
         if any(got[k] != r9[k] for k in keys):
             raise AssertionError(f"realworld CLI {got} vs phase 9 {r9}")
         log(f"  (c) realworld: {[got[k] for k in keys]} bitwise phase 9's")
-        r, _ = _cli("realworld --mesh 2", ["realworld", "--data-dir", str(d),
-                                           "--mesh", "2"], expect_ok=False)
-        if "not ported yet" not in r.stderr:
-            raise AssertionError(f"--mesh 2: {r.stderr[-2000:]}")
+        # --mesh 2 needs two visible cards on the card (JAX's
+        # visible-devices check) and takes two virtual shards with --cpu
+        mesh_args = ["realworld", "--data-dir", str(d), "--max-scans",
+                     str(CLI_MESH_SCANS), "--set", f"voxel.voxel_size={VOXEL}",
+                     "--set", f"voxel.eigen_ratio={er}", "--mesh", "2"]
+        if torch.cuda.device_count() < 2:
+            r, _ = _cli("realworld --mesh 2 (one card)", mesh_args,
+                        expect_ok=False)
+            if "devices visible" not in r.stderr:
+                raise AssertionError(f"--mesh 2: {r.stderr[-2000:]}")
+        else:
+            got, rec["realworld_mesh_s"] = _cli("realworld --mesh 2",
+                                                mesh_args)
+            if got["mesh_devices"] != 2 or got["status"] != "ok":
+                raise AssertionError(f"realworld --mesh 2: {got}")
+        got, rec["realworld_mesh_cpu_s"] = _cli("realworld --cpu --mesh 2",
+                                                mesh_args + ["--cpu"])
+        if not (got["mesh_devices"] == 2 and got["status"] == "ok"
+                and np.isfinite(got["residual_final"])):
+            raise AssertionError(f"realworld --cpu --mesh 2: {got}")
 
         csv = tmp / "optimized.csv"
         got, rec["optimize_s"] = _cli("optimize", [
@@ -4120,6 +4173,394 @@ def slice11(card, dev, counters, scans, R_gt, p_gt, R0, p0, rec9):
 
 
 # --------------------------------------------------------------------------
+# phase 15: slice 12
+# --------------------------------------------------------------------------
+
+# the shards of phase 15: the first MESH_N cards when that many are
+# visible, else MESH_N virtual shards of the one card (the counterpart of
+# the JAX tests' virtual devices: the shards run one after another)
+MESH_N = 4
+# the JAX package's bars for sharded against unsharded
+# (tests/test_sharding.py): res relative, J and H relative to max|.|; the
+# LM poses absolute (on the corridors of (d)); on the 256-scan scene its
+# realworld-scale bars (tests/test_sharding.py:229-234: R 1e-8, p 1e-7,
+# 10 iterations through a 1536-unknown Cholesky carry the evaluates'
+# ~5e-16 apart to ~1e-8 m on a 512 m chain) and realworld.run's final
+# residual relative
+TOL_SHARD = {"res": 1e-12, "J": 1e-10, "H": 1e-10, "pose": 1e-9,
+             "R_rw": 1e-8, "p_rw": 1e-7}
+TOL_SHARD_RW = 1e-6
+# the sharded packed evaluate against the unsharded one of the same impl
+# (tests/test_sharded_pallas.py's bar)
+TOL_SHARD_PACKED = 1e-4
+# (d) the corridor of phase 10 made well-posed (the JAX test's
+# vis / pillar_spacing: no cost-flat sliding mode), f64, CG run to
+# convergence; the first SHARD_LM_ITERS LM iterations held at the bars of
+# tests/test_pose_sharded.py:45-58; banded also at W=SHARD_BANDED_W,
+# where its steps are accepted (from W = 1024 on the banded LU gives
+# non-finite steps on this corridor, in the JAX package too, so every
+# step is rejected there)
+SHARD_LM_ITERS = 4
+SHARD_CG = dict(cg_iters=4000, cg_tol=1e-12)
+SHARD_BANDED_W = 512
+TOL_SHARD_TRACE = 1e-8
+
+
+def _sync_all():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def wall(fn):
+    """(fn(), host seconds), synchronized on every visible card."""
+    _sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync_all()
+    return out, time.perf_counter() - t0
+
+
+def same_large(what, out, ref):
+    """Raise unless two large-window LMResults agree at the JAX test's
+    bars: poses, residual, accept pattern and trace res1."""
+    dR = float((out.R - ref.R).abs().max())
+    dp = float((out.p - ref.p).abs().max())
+    rel = abs(out.residual - ref.residual) / abs(ref.residual)
+    n = ref.iters
+    tr = float(np.max(np.abs(out.trace_res1[:n] - ref.trace_res1[:n])
+                      / np.abs(ref.trace_res1[:n])))
+    log(f"  {what}: {out.iters} iterations, accept "
+        f"{out.trace_accept[:out.iters].tolist()}, CG "
+        f"{out.trace_cg[:out.iters].tolist()}; vs unsharded dR {dR:.3e} dp "
+        f"{dp:.3e} (tol {TOL_SHARD['pose']:.0e}), residual rel {rel:.3e}, "
+        f"trace res1 rel {tr:.3e} (tol {TOL_SHARD_TRACE:.0e})")
+    if not (out.iters == ref.iters and np.array_equal(
+            out.trace_accept[:n], ref.trace_accept[:n])
+            and dR <= TOL_SHARD["pose"] and dp <= TOL_SHARD["pose"]
+            and rel <= 1e-9 and tr <= TOL_SHARD_TRACE):
+        raise AssertionError(f"{what} differs from the unsharded solve")
+    return {"dR": dR, "dp": dp, "residual_rel": rel, "trace_res1_rel": tr}
+
+
+def mesh_phase(card, dev, devs, f64, R64, p64):
+    """15a: evaluate_shard_map and the sharded damping_iter, f64 'xla',
+    against unsharded; ms per sharded evaluate at 1, 2 and MESH_N
+    shards."""
+    import torch
+
+    from balm_tpu_torch.config import SolverConfig
+    from balm_tpu_torch.ops import factors as Fmod
+    from balm_tpu_torch.ops import lie
+    from balm_tpu_torch.parallel import sharded
+    from balm_tpu_torch.solver import lm
+
+    rec = {}
+    T = lie.pose_matrix(R64, p64)
+    ev0 = Fmod.evaluate(T, f64)
+    fs = {n: sharded.shard_factors(f64, sharded.make_mesh(devices=devs[:n]))
+          for n in (1, 2, MESH_N)}
+    ev = sharded.evaluate_shard_map(T, fs[MESH_N])
+    rec["evaluate"] = {
+        "res_rel": abs(float(ev[0]) - float(ev0[0])) / abs(float(ev0[0])),
+        "J": compare(f"(a) evaluate_shard_map J, {MESH_N} shards vs "
+                     f"unsharded", ev[1], ev0[1], TOL_SHARD["J"]),
+        "H": compare(f"(a) evaluate_shard_map H, {MESH_N} shards vs "
+                     f"unsharded", ev[2], ev0[2], TOL_SHARD["H"])}
+    log(f"  (a) evaluate_shard_map res rel {rec['evaluate']['res_rel']:.3e}"
+        f" (tol {TOL_SHARD['res']:.0e}); {fs[MESH_N].num_planes} planes "
+        f"padded, {fs[MESH_N].num_planes // MESH_N} per shard")
+    if not rec["evaluate"]["res_rel"] <= TOL_SHARD["res"]:
+        raise AssertionError("evaluate_shard_map res differs")
+    rec["H"] = ev[2]
+    del ev, ev0
+    ms = {"unsharded": time_ms(lambda: Fmod.evaluate(T, f64), iters=3,
+                               warmup=1)}
+    for n, f_n in fs.items():
+        ms[n] = time_ms(lambda: sharded.evaluate_shard_map(T, f_n), iters=3,
+                        warmup=1)
+    rec["evaluate_ms"] = {str(k): v for k, v in ms.items()}
+    log(f"  (a) ms per f64 evaluate (CUDA events): unsharded "
+        f"{ms['unsharded']:.3f}, " + ", ".join(
+            f"{n} shard{'s' * (n > 1)} {ms[n]:.3f}" for n in fs)
+        + f" on {card}")
+    cfg = SolverConfig()
+    ref, t_ref = wall(lambda: lm.damping_iter(R64, p64, f64, cfg))
+    out, t_out = wall(lambda: lm.damping_iter(R64, p64, fs[MESH_N], cfg))
+    dR = float((out.R - ref.R).abs().max())
+    dp = float((out.p - ref.p).abs().max())
+    rec["lm"] = {"iters": out.iters, "dR": dR, "dp": dp,
+                 "ms_per_iter_unsharded": 1e3 * t_ref / max(ref.iters, 1),
+                 "ms_per_iter_sharded": 1e3 * t_out / max(out.iters, 1)}
+    log(f"  (a) damping_iter f64 'xla': unsharded {ref.iters} iterations "
+        f"{ref.trace_res1[0]:.6f} -> {ref.residual:.6f}, "
+        f"{rec['lm']['ms_per_iter_unsharded']:.1f} ms per iteration; "
+        f"{MESH_N} shards {out.iters} iterations, "
+        f"{rec['lm']['ms_per_iter_sharded']:.1f} ms per iteration (host "
+        f"clock) on {card}; dR {dR:.3e} (tol {TOL_SHARD['R_rw']:.0e}) dp "
+        f"{dp:.3e} (tol {TOL_SHARD['p_rw']:.0e})")
+    check_rel("(a) damping_iter residual, sharded vs unsharded",
+              out.residual, ref.residual, TOL_SHARD_RW)
+    if not (out.iters == ref.iters and dR <= TOL_SHARD["R_rw"]
+            and dp <= TOL_SHARD["p_rw"] and not out.degenerate):
+        raise AssertionError("the sharded damping_iter differs")
+    return rec
+
+
+def packed_sharded_phase(card, devs, counters, R0t, p0t, pk):
+    """15b: evaluate_packed_sharded at every impl against the unsharded
+    evaluate_packed of the same impl: the launches per evaluate, the same
+    bits twice, the times."""
+    import torch
+
+    from balm_tpu_torch.ops import packed_evaluate as pe
+    from balm_tpu_torch.parallel import sharded
+    from balm_tpu_torch.parallel import sharded_pallas as sp
+
+    mesh = sharded.make_mesh(devices=devs)
+    spk = sp.shard_packed(pk, mesh)
+    shape = {"wp": spk.shards[0].wp, "gp_shard": spk.shards[0].gp,
+             "gp": spk.gp, "shards": MESH_N}
+    log(f"  (b) shard_packed: Gp {pk.gp} -> {spk.gp}, {MESH_N} shards of "
+        f"Wp={shape['wp']} Gp={shape['gp_shard']} "
+        f"({shape['gp_shard'] // 128} tiles of 128)")
+    kernel = {"xla": "rows", "hybrid": "rows", "pallas": "hess_v1",
+              "pallas2": "hess_v2", "pallas3": "hess_v3"}
+    rec = {"shape": shape, "launches": {}, "ms": {}}
+    for impl in pe.IMPLS:
+        for c in counters.values():
+            c.launches = 0
+        got = sp.evaluate_packed_sharded(R0t, p0t, spk, impl=impl)
+        _sync_all()
+        n_l = {k: c.launches for k, c in counters.items() if c.launches}
+        rec["launches"][impl] = n_l
+        want = {"csum": MESH_N, kernel[impl]: MESH_N}
+        if n_l != want:
+            raise AssertionError(f"(b) {impl}: launches {n_l}, want {want}")
+        ref = pe.evaluate_packed(R0t, p0t, pk, impl=impl)
+        for name, a, b in zip(("res", "J", "H"), got, ref):
+            compare(f"(b) {impl} {name}, {MESH_N} shards vs unsharded",
+                    a.reshape(-1), b.reshape(-1), TOL_SHARD_PACKED)
+        again = sp.evaluate_packed_sharded(R0t, p0t, spk, impl=impl)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"(b) {impl}: two runs differ")
+        del got, again, ref
+        rec["ms"][impl] = {
+            "sharded": time_ms(lambda: sp.evaluate_packed_sharded(
+                R0t, p0t, spk, impl=impl), iters=5, warmup=1),
+            "unsharded": time_ms(lambda: pe.evaluate_packed(
+                R0t, p0t, pk, impl=impl), iters=5, warmup=1)}
+        log(f"  (b) {impl}: launches per evaluate {n_l}, the same bits "
+            f"twice; {rec['ms'][impl]['sharded']:.3f} ms sharded, "
+            f"{rec['ms'][impl]['unsharded']:.3f} ms unsharded (CUDA "
+            f"events) on {card}")
+    r = sp.residual_only_packed_sharded(R0t, p0t, spk)
+    r0 = pe.residual_only_packed(R0t, p0t, pk)
+    check_rel("(b) residual_only_packed_sharded vs unsharded", float(r),
+              float(r0), TOL_SHARD_PACKED)
+    return rec
+
+
+def realworld_mesh_phase(card, dev, devs, scans, R_gt, p_gt, R0, p0, vcfg):
+    """15c: realworld.run(cfg, mesh=...) in f64 against the unsharded
+    'xla' run on phase 9's written scene."""
+    import dataclasses
+    import tempfile
+
+    from balm_tpu_torch.parallel import sharded
+    from balm_tpu_torch.pipelines import realworld
+
+    Rw, pw = R0.copy(), p0.copy()
+    Rw[0], pw[0] = R_gt[0], p_gt[0]          # as phase 9 wrote it
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        write_scene(d, scans, Rw, pw)
+        cfg = realworld.RealworldConfig(data_dir=str(d), voxel=vcfg)
+        sh = realworld.run(cfg, device=dev,
+                           mesh=sharded.make_mesh(devices=devs))
+        un = realworld.run(dataclasses.replace(cfg, backend="xla"),
+                           device=dev)
+    keys = ("num_planes", "iters", "residual_initial", "residual_final",
+            "t_load_s", "t_assoc_s", "t_solve_s")
+    rec = {"sharded": {k: sh[k] for k in keys + ("mesh_devices",
+                                                 "planes_per_shard")},
+           "unsharded": {k: un[k] for k in keys}}
+    log(f"  (c) realworld.run f64, {sh['mesh_devices']} shards: "
+        f"{json.dumps(rec['sharded'])}; unsharded 'xla': "
+        f"{json.dumps(rec['unsharded'])} on {card}")
+    if not (sh["num_planes"] == un["num_planes"]
+            and sh["iters"] == un["iters"] and sh["backend"] == "xla"
+            and sh["mesh_devices"] == MESH_N and sh["status"] == "ok"):
+        raise AssertionError(f"(c) the mesh run differs: {rec}")
+    check_rel("(c) residual_final, mesh vs unsharded", sh["residual_final"],
+              un["residual_final"], TOL_SHARD_RW)
+    return rec
+
+
+def corridor_shard_phase(card, dev, devs):
+    """15d: the pose-sharded LM and the plane-sharded damping_iter_large
+    (banded and pcg) on the well-posed W=CORRIDOR_W corridor, f64, against
+    the unsharded solves; ms per LM iteration."""
+    from balm_tpu_torch.config import SolverConfig
+    from balm_tpu_torch.parallel import pose_sharded as PS
+    from balm_tpu_torch.parallel import sharded
+    from balm_tpu_torch.pipelines import corridor
+    from balm_tpu_torch.solver import large
+
+    mesh = sharded.make_mesh(devices=devs)
+    cfg = SolverConfig(max_iters=SHARD_LM_ITERS)
+    rec = {}
+    for W in (CORRIDOR_W, SHARD_BANDED_W):
+        ccfg = corridor.CorridorConfig(W=W, vis=1.6, pillar_spacing=2.0,
+                                       dtype="float64")
+        R_gt, p_gt, wf = corridor.make_corridor(ccfg, device=dev)
+        R0, p0 = corridor.corrupt_poses(R_gt, p_gt, ccfg)
+        wfs = sharded.shard_factors(wf, mesh)
+        log(f"  (d) corridor W={W} (vis 1.6, pillars every 2 m), f64: "
+            f"{wf.num_planes} planes, span {wf.span}")
+        solves = [("banded", {}), ("pcg", SHARD_CG)]
+        if W != CORRIDOR_W:
+            solves = solves[:1]
+        for ls, kw in solves:
+            ref, t_ref = wall(lambda: large.damping_iter_large(
+                R0, p0, wf, cfg, linear_solver=ls, **kw))
+            out, t_out = wall(lambda: large.damping_iter_large(
+                R0, p0, wfs, cfg, linear_solver=ls, **kw))
+            r = same_large(f"(d) W={W} plane-sharded {ls}, {MESH_N} shards",
+                           out, ref)
+            r.update(ms_per_iter=1e3 * t_out / max(out.iters, 1),
+                     ms_per_iter_unsharded=1e3 * t_ref / max(ref.iters, 1))
+            rec[f"W{W}_{ls}"] = r
+            log(f"  (d) W={W} {ls}: {r['ms_per_iter_unsharded']:.2f} ms per "
+                f"LM iteration unsharded, {r['ms_per_iter']:.2f} plane-"
+                f"sharded (host clock) on {card}")
+            if ls == "pcg":
+                if max(ref.trace_cg[:ref.iters]) >= SHARD_CG["cg_iters"]:
+                    raise AssertionError("(d) CG hit its cap")
+                prob = PS.prepare(R0, p0, wf, MESH_N)
+                ps, t_ps = wall(lambda: PS.damping_iter_pose_sharded(
+                    prob, mesh, cfg, **SHARD_CG))
+                r = same_large(f"(d) W={W} pose-sharded, {MESH_N} blocks of "
+                               f"{prob.Wb}", ps, ref)
+                r["ms_per_iter"] = 1e3 * t_ps / max(ps.iters, 1)
+                rec[f"W{W}_pose_sharded"] = r
+                log(f"  (d) W={W} pose-sharded: {r['ms_per_iter']:.2f} ms "
+                    f"per LM iteration (host clock) on {card}")
+    return rec
+
+
+def distributed_phase(card, dev, H):
+    """15e: a one-rank NCCL group on the card (an all_reduce of (a)'s H:
+    the same bits, timed) and the two-process demo sharing the card."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from balm_tpu_torch.parallel import mesh as mesh_mod
+    from balm_tpu_torch.parallel import multihost_demo
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    backend = mesh_mod.init_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        gm = mesh_mod.make_global_mesh()
+        buf = H.clone()
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        if backend != "nccl" or not torch.equal(buf, H):
+            raise AssertionError(f"(e) all_reduce on {backend}: not the "
+                                 f"same bits")
+        ms = time_ms(lambda: dist.all_reduce(buf), iters=10)
+        nbytes = buf.numel() * buf.element_size()
+        log(f"  (e) init_distributed: backend {backend}, {gm}; all_reduce "
+            f"of H ({tuple(H.shape)} f64, {nbytes} B): the same bits, "
+            f"{ms:.4f} ms (CUDA events, one rank) on {card}")
+    finally:
+        dist.destroy_process_group()
+    demo = multihost_demo.run(2, 2, device="cuda", timeout=300)
+    log(f"  (e) multihost_demo, 2 processes x 2 shards on the card: "
+        f"{json.dumps(demo)}")
+    if not demo["ok"]:
+        raise AssertionError("(e) the two-process demo disagrees")
+    return {"backend": backend, "all_reduce_ms": ms, "bytes": nbytes,
+            "demo": demo}
+
+
+def graft_phase(card, dev, devs, f64, R64, p64):
+    """15f: graft_entry.entry(), dryrun_multichip(MESH_N) and
+    scaling.measure([1, 2, MESH_N])."""
+    import torch
+
+    from balm_tpu_torch import graft_entry
+    from balm_tpu_torch.config import SolverConfig
+    from balm_tpu_torch.utils import scaling
+
+    fn, args = graft_entry.entry(device=dev)
+    out = fn(*args)
+    if not all(bool(torch.all(torch.isfinite(o))) for o in out):
+        raise AssertionError("(f) entry(): not finite")
+    log(f"  (f) entry(): res {float(out[0]):.6f}, J {tuple(out[1].shape)}, "
+        f"H {tuple(out[2].shape)}, finite")
+    _, t_dry = wall(lambda: graft_entry.dryrun_multichip(MESH_N,
+                                                         devices=devs))
+    log(f"  (f) dryrun_multichip({MESH_N}): ok in {t_dry:.2f} s")
+    sc = scaling.measure(R64, p64, f64, device_counts=[1, 2, MESH_N],
+                         solver_cfg=SolverConfig(max_iters=3, u_init=0.01,
+                                                 rel_tol=0.0,
+                                                 min_planes_per_pose=1),
+                         repeats=1, devices=devs)
+    virtual = len(set(devs)) < len(devs)
+    what = ("virtual shards of one card: the sharding's overhead, not "
+            "scaling" if virtual else "distinct cards")
+    log(f"  (f) scaling.measure on the 256-scan scene, f64 'xla', 3 "
+        f"iterations ({what}) on {card}: {json.dumps(sc)}")
+    res = [r["residual"] for r in sc]
+    if not max(res) - min(res) <= 1e-9 * abs(res[0]):
+        raise AssertionError(f"(f) the meshes reach other residuals: {res}")
+    return {"dryrun_s": t_dry, "scaling": sc, "virtual_shards": virtual}
+
+
+def slice12(card, dev, counters, scans, R_gt, p_gt, R0, p0, vcfg, vres,
+            pk, R0t, p0t):
+    """Phase 15: the multi-device paths on MESH_N shards.  `scans` ...
+    `vcfg`, `vres`: phase 3's scene and its host voxelization; `pk`,
+    `R0t`, `p0t`: its packed f32 factors and poses on the card."""
+    import torch
+
+    from balm_tpu_torch.ops import factors as Fmod
+
+    t_phase = time.perf_counter()
+    count = torch.cuda.device_count()
+    if count >= MESH_N:
+        devs = [torch.device("cuda", i) for i in range(MESH_N)]
+        log(f"  mesh: the first {MESH_N} of {count} visible cards")
+    else:
+        devs = [dev] * MESH_N
+        log(f"  mesh: {MESH_N} virtual shards of {dev} ({count} card(s) "
+            f"visible): the shards run one after another")
+    f64 = Fmod.factors_from_numpy(vres.factors, device=dev,
+                                  dtype=torch.float64)
+    R64 = torch.tensor(R0, dtype=torch.float64, device=dev)
+    p64 = torch.tensor(p0, dtype=torch.float64, device=dev)
+    rec = {"devices": [str(d) for d in devs]}
+    rec["mesh"] = mesh_phase(card, dev, devs, f64, R64, p64)
+    H = rec["mesh"].pop("H")
+    rec["packed"] = packed_sharded_phase(card, devs, counters, R0t, p0t, pk)
+    rec["realworld"] = realworld_mesh_phase(card, dev, devs, scans, R_gt,
+                                            p_gt, R0, p0, vcfg)
+    rec["corridor"] = corridor_shard_phase(card, dev, devs)
+    rec["distributed"] = distributed_phase(card, dev, H)
+    del H
+    rec["graft"] = graft_phase(card, dev, devs, f64, R64, p64)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {rec['seconds']:.1f} s on {card}")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # main
 # --------------------------------------------------------------------------
 
@@ -4129,7 +4570,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     t_all = time.perf_counter()
 
-    log("phase 1/14 device")
+    log("phase 1/15 device")
     import torch
 
     if not torch.cuda.is_available():
@@ -4156,7 +4597,7 @@ def main(argv=None) -> int:
         f"devices {torch.cuda.device_count()}")
     dev = torch.device("cuda", 0)
 
-    log("phase 2/14 build")
+    log("phase 2/15 build")
     b = _cuda.build(force=True)
     log(f"  nvcc build: {b['seconds']:.2f} s -> {_cuda.LIB_PATH}")
     for line in b["log"].splitlines():
@@ -4165,7 +4606,7 @@ def main(argv=None) -> int:
     _cuda.lib()
     sass_counts()
 
-    log("phase 3/14 scene")
+    log("phase 3/15 scene")
     t0 = time.perf_counter()
     R_gt, p_gt, scans = make_scene(SCANS, args.seed)
     R0, p0 = perturb(R_gt, p_gt, args.seed)
@@ -4182,7 +4623,7 @@ def main(argv=None) -> int:
     log(f"  {SCANS} scans, {n_pts} points, {vres.num_planes} planes, "
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
-    log("phase 4/14 kernels vs plain")
+    log("phase 4/15 kernels vs plain")
     recs, aux = check_kernels(pose, pk, "slice")
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
@@ -4279,7 +4720,7 @@ def main(argv=None) -> int:
             f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
-    log("phase 5/14 small slice: card vs plain CPU path")
+    log("phase 5/15 small slice: card vs plain CPU path")
     Rs, ps, ss = make_scene(24, args.seed + 7, pts_per_scan=6000)
     Rs0, ps0 = perturb(Rs, ps, args.seed + 7)
     _, _, ic = balm_tpu_torch.optimize_poses(ss, Rs0, ps0, voxel=vcfg)
@@ -4298,7 +4739,7 @@ def main(argv=None) -> int:
     if abs(ic["residual"] - ih["residual"]) > 1e-3 * ih["residual"]:
         raise AssertionError("final residuals differ beyond 1e-3")
 
-    log("phase 6/14 slice: optimize_poses on the card")
+    log("phase 6/15 slice: optimize_poses on the card")
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
@@ -4376,7 +4817,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"slice check failed: launches {launches}, "
                              f"info {info}, rsme {rs0} -> {rs1}")
 
-    log("phase 7/14 slice 2: the fused-Hessian evaluate on the card")
+    log("phase 7/15 slice 2: the fused-Hessian evaluate on the card")
     ref = res
     perm = torch.arange(6 * SCANS, device=dev).view(6, SCANS).T.reshape(-1)
     ev_jw = pe.evaluate_packed_jw(R0t, p0t, pk)
@@ -4414,41 +4855,48 @@ def main(argv=None) -> int:
                 fused and got["rows"] != 0):
             raise AssertionError(f"{name}: launches {got}")
 
-    log("phase 8/14 slice 3: the f64 XLA evaluator path and B7 on the card")
+    log("phase 8/15 slice 3: the f64 XLA evaluator path and B7 on the card")
     rec_b7 = slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres,
                     f, ref, counters)
 
-    log("phase 9/14 slice 6: benchmark_realworld on the card")
+    log("phase 9/15 slice 6: benchmark_realworld on the card")
     rec9 = slice6(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, f, ref,
                   counters)
     log(f"  phase9: {json.dumps(rec9)}")
 
-    log("phase 10/14 slice 7: large windows and pose-graph edges on the card")
+    log("phase 10/15 slice 7: large windows and pose-graph edges on the card")
     rec10 = slice7(args, dev, card, counters, f, f_cpu, R0t, p0t)
     log(f"  phase10: {json.dumps(rec10)}")
 
-    log("phase 11/14 slice 8: the NEES experiment and the host hierarchy "
+    log("phase 11/15 slice 8: the NEES experiment and the host hierarchy "
         "on the card")
     rec11 = slice8(card, counters, dev, f, pk, R0t, p0t, ref)
     log(f"  phase11: {json.dumps(rec11)}")
 
-    log("phase 12/14 slice 9: the device-batched hierarchy and the anchor "
+    log("phase 12/15 slice 9: the device-batched hierarchy and the anchor "
         "pose-graph stage on the card")
     counters.update({"csum_batched": pe.csum_packed_batched,
                      "rows_batched": pe.rows_packed_batched})
     rec12 = slice9(args, card, dev, counters)
     log(f"  phase12: {json.dumps(rec12)}")
 
-    log("phase 13/14 slice 10: the front end (loop closure, odometry, "
+    log("phase 13/15 slice 10: the front end (loop closure, odometry, "
         "LOAM) on the card")
     rec13 = slice10(args, card, dev, counters, scans, R_gt, p_gt, R0, p0,
                     vcfg, (R1, p1))
     log(f"  phase13: {json.dumps(rec13)}")
 
-    log("phase 14/14 slice 11: the paper's method comparison, the "
+    log("phase 14/15 slice 11: the paper's method comparison, the "
         "baselines card vs CPU, the command line and the device trace")
     rec14 = slice11(card, dev, counters, scans, R_gt, p_gt, R0, p0, rec9)
     log(f"  phase14: {json.dumps(rec14)}")
+
+    log("phase 15/15 slice 12: the multi-device paths (factor-sharded "
+        "evaluate and LM, the sharded packed kernels, realworld's mesh, the "
+        "pose-sharded LM, the process group, the graft entry)")
+    rec15 = slice12(card, dev, counters, scans, R_gt, p_gt, R0, p0, vcfg,
+                    vres, pk, R0t, p0t)
+    log(f"  phase15: {json.dumps(rec15)}")
     # every module of the port is imported by now: still no jax, no
     # balm_tpu, no tests
     bad = [m for m in sys.modules
@@ -4480,6 +4928,10 @@ def main(argv=None) -> int:
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
             "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
+        rec["launches_sharded"] = {
+            impl: n_l[name] for impl, n_l in
+            rec15["packed"]["launches"].items() if name in n_l}
+        rec["sharded_shape"] = rec15["packed"]["shape"]
         if name in ("csum", "rows"):
             rec["err_by_output"]["square_W72"] = \
                 rec13["loop"]["kernel_check"][name]

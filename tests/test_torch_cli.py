@@ -5,10 +5,12 @@ balm_tpu_torch/__main__.py) and its timers and device trace
 Tolerances:
   * _apply_sets, _coerce, _jsonable: equal (the same parsing; tensors
     give the lists and scalars numpy arrays give)
-  * `virtual --cpu` and `optimize --cpu` against balm_tpu.__main__'s
-    JSON line on the same arguments: the same keys and integers, every
-    float within 1e-9 relative (the same float64 solves through two
-    packages; their products and sums round in another order)
+  * `virtual --cpu`, `optimize --cpu` and `realworld --cpu --mesh 2`
+    against balm_tpu.__main__'s JSON line on the same arguments: the same
+    keys and integers, every float within 1e-9 relative (the same
+    float64 solves through two packages; their products and sums round
+    in another order); realworld's seconds and the port's own keys
+    (assoc_backend, assoc_attempts_s, backend) aside
   * utils/metrics.pose_rsme on float32 poses against float64 ground
     truth: promoted to float64 like jnp's, within 1e-9 of JAX's
 """
@@ -142,14 +144,29 @@ def test_optimize_cpu_matches_jax_cli(capsys, scan_dir, tmp_path):
     assert np.max(np.abs(a - b)) < 1e-8
 
 
-def test_mesh_exits_nonzero_and_card_required(tmp_path):
-    r = subprocess.run(
-        [sys.executable, "-m", "balm_tpu_torch", "realworld", "--cpu",
-         "--mesh", "2", "--data-dir", str(tmp_path)],
-        cwd=REPO, capture_output=True, text=True, timeout=120)
-    assert r.returncode != 0
-    assert "not ported yet" in r.stderr
-    assert r.stdout == ""
+def test_mesh_exits_nonzero_and_card_required(capsys, scan_dir):
+    """`realworld --cpu --mesh 2` runs the factor-parallel solve on 2
+    virtual CPU shards and prints JAX's `realworld --mesh 2` line (its
+    seconds aside); without --cpu it needs 2 visible cards and exits
+    non-zero with fewer, as JAX's visible-devices check."""
+    assert cli.main(["realworld", "--cpu", "--mesh", "2", "--data-dir",
+                     str(scan_dir)]) == 0
+    got = _last_json(capsys)
+    assert jcli.main(["realworld", "--mesh", "2", "--data-dir",
+                      str(scan_dir)]) == 0
+    ref = _last_json(capsys)
+    assert got["mesh_devices"] == 2 and got["backend"] == "xla"
+    assert set(ref) - {"t_load_s", "t_assoc_s", "t_solve_s"} <= set(got)
+    _same_summary({k: got[k] for k in ref if not k.startswith("t_")},
+                  {k: v for k, v in ref.items() if not k.startswith("t_")})
+    if torch.cuda.device_count() < 2:
+        r = subprocess.run(
+            [sys.executable, "-m", "balm_tpu_torch", "realworld", "--mesh",
+             "2", "--data-dir", str(scan_dir)],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0 and r.stdout == ""
+        assert ("devices visible" in r.stderr
+                or "no CUDA device" in r.stderr), r.stderr[-2000:]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(["virtual", *VIRTUAL_SETS])

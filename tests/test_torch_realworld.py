@@ -16,6 +16,9 @@ Tolerances:
     test_realworld_pipeline.py:27-37)
   * coarse_to_fine.run in f64: per stage the same planes and iterations,
     residuals within 1e-9 relative
+  * realworld.run(mesh_devices=8) on 8 virtual CPU shards against JAX's
+    on its 8 virtual devices: the same planes and iterations,
+    residual_final within 1e-6 relative (tests/test_sharding.py:232)
 """
 
 import pathlib
@@ -247,7 +250,8 @@ def test_coarse_to_fine_matches_jax():
 
 def test_realworld_stages_and_options(scene):
     """The stages prologue runs; what the port refuses, it refuses as the
-    JAX package does (or names ROADMAP.md where it is not ported)."""
+    JAX package does; mesh_devices=8 runs the factor-parallel solve on 8
+    virtual CPU shards, as JAX's on its 8 virtual devices."""
     d = str(scene[0])
     out = trw.run(trw.RealworldConfig(
         data_dir=d, max_scans=6, stages=tc2f.default_stages()[1:]),
@@ -258,9 +262,15 @@ def test_realworld_stages_and_options(scene):
         trw.run(trw.RealworldConfig(data_dir=d, assoc_backend="device",
                                     merge_planes=True, dtype="float32",
                                     centered=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trw.run(trw.RealworldConfig(data_dir=d, mesh_devices=2),
-                device="cpu")
+    got = trw.run(trw.RealworldConfig(data_dir=d, mesh_devices=8),
+                  device="cpu")
+    ref = jrw.run(jrw.RealworldConfig(data_dir=d, mesh_devices=8))
+    for k in ("status", "num_planes", "iters", "mesh_devices",
+              "planes_per_shard"):
+        assert got[k] == ref[k], k
+    assert got["backend"] == "xla" and got["mesh_devices"] == 8
+    assert abs(got["residual_final"] - ref["residual_final"]) \
+        <= 1e-6 * abs(ref["residual_final"])
     # down-sampled to one centroid per 4 m cell: no plane survives
     few = trw.run(trw.RealworldConfig(data_dir=d, max_scans=2,
                                       downsample=4.0), device="cpu")
