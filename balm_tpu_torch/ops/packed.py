@@ -20,6 +20,14 @@ multiple of GPAD = 128 (the plane tile of both kernels), Wp a multiple of
 WPAD = 8.  Padding scans carry zero moments and padding planes zero coe,
 so both contribute exactly zero downstream (everything scales with n, P
 or coe).  The kernels also take unpadded (ragged) shapes.
+
+The layout's invariant: P == 0 wherever n == 0 (an entry whose scan does
+not see the plane).  Factors built from points satisfy it already;
+pack_factors enforces it on the float32 channels.  b at such an entry is
+left as it is: it is finite and every use multiplies it by n = 0.  So an
+empty entry adds exactly +-0 to every output of B1 and B2, and their
+CUDA kernels (csrc/packed_kernels.cu) read n first and skip the entry's
+other channels.
 """
 
 from __future__ import annotations
@@ -98,7 +106,11 @@ def pack_factors(f: F.PlaneFactors, *, gpad: int = GPAD,
         dim=-2)
     cfix = torch.nn.functional.pad(cfx, (0, Gp - G))
 
-    return PackedFactors(mom=mom.to(dt).contiguous(),
+    mom = mom.to(dt)
+    # the invariant the kernels rely on: P == 0 wherever n == 0
+    mom = torch.cat([torch.where(mom[..., 9:10, :] == 0, 0.0,
+                                 mom[..., :6, :]), mom[..., 6:, :]], dim=-2)
+    return PackedFactors(mom=mom.contiguous(),
                          cen=cen.to(dt).contiguous(),
                          coe=coe.to(dt).contiguous(),
                          cfix=cfix.to(dt).contiguous())

@@ -16,7 +16,7 @@ import pathlib
 import numpy as np
 import torch
 
-from ..io.poses import read_pose_csv  # noqa: F401  (re-exported)
+from ..io import poses
 from ..ops.factors import PlaneFactors
 
 _FIELDS = ("C", "Cfix", "coe", "centers", "body_centers")
@@ -118,3 +118,9 @@ def write_pose_csv(path, R, p, t=None):
             M[3, 3] = t[i]
             for row in M:
                 fh.write(",".join(f"{x:.9f}" for x in row) + ",\n")
+
+
+def read_pose_csv(path):
+    """Read the reference's 4-lines-per-pose CSV trajectory -> (R (W, 3,
+    3), p (W, 3), t (W,)) float64 arrays: io/poses.read_pose_csv."""
+    return poses.read_pose_csv(path)

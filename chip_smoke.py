@@ -39,7 +39,15 @@ failure raises and the script exits non-zero:
                version's time and, for the fused-Hessian kernels, the
                library time of the same product (exact: three fp32
                torch.mm on B2's rows; bf16x3: one bf16 torch.mm with fp32
-               output over the concatenated pieces), B5 also by stage
+               output over the concatenated pieces), B5 also by stage.
+               Bounds count what the inputs need (live_stats, bounds):
+               n of every entry and the rest of the live ones, the
+               H products over plane-sharing scan pairs only; the dense
+               bound beside each.  B1 and B2 at every shape above (the
+               slice, the ragged W=13 and W=24, the random W=256,
+               G=11520): the live share and the live share of (scan,
+               32-plane warp) groups, and the median of 5 CUDA-event runs
+               beside the recounted and the dense bound
   5. small   - optimize_poses on the card against the plain CPU path on a
                small scene
   6. slice   - the main path: optimize_poses(..., backend='packed') on
@@ -62,8 +70,11 @@ failure raises and the script exits non-zero:
   8. slice 3 - the f64 XLA evaluator path and kernel B7 `moments` at the
                same size: (a) B7 against its plain version in f32 and f64
                on the scene's recentered factors and on a ragged-W
-               problem, CUDA-event times beside its bound, its plain
-               version's and residual_moments' time; (b) the residual
+               problem, CUDA-event times beside its bound (recounted
+               for the live entries, the dense one beside it), its plain
+               version's, residual_moments' and the library's (one
+               torch.einsum over T' and C, built beforehand) time; (b)
+               the residual
                through B7 (residual_only(centered=True, use_pallas=True),
                every launch count set to 0 just before and read just
                after) against the moment path and against f64;
@@ -155,8 +166,9 @@ failure raises and the script exits non-zero:
                W=2048 hierarchy's block shape (B=255, Wp=16, Gp=256) and
                at B=3, W=13, G=300, on random moments from --seed, each
                launched twice for the same bits and bitwise equal block
-               by block to the single-problem launch, timed beside their
-               bounds; (b) hierarchical.run_device_batched on a W=48 cut
+               by block to the single-problem launch, timed (medians of
+               5) beside their recounted bounds with the live shares, as
+               in phase 4; (b) hierarchical.run_device_batched on a W=48 cut
                of the W=400 corridor, card (batched launches > 0) and
                CPU: the same block planes, RSME below the start's on
                both, end poses printed (f32 rounding moves them,
@@ -245,7 +257,9 @@ failure raises and the script exits non-zero:
                card (logged).  (a) On phase 3's scene in f64 'xla':
                evaluate_shard_map and damping_iter on plane-sharded
                factors against unsharded at the JAX package's bars
-               (TOL_SHARD), ms per f64 evaluate at 1, 2 and 4 shards;
+               (TOL_SHARD), beside what permuting the planes alone moves
+               the unsharded solve by (the roundoff spread), ms per f64
+               evaluate at 1, 2 and 4 shards;
                (b) evaluate_packed_sharded at every impl against the
                unsharded evaluate_packed of the same impl (1e-4): each
                kernel (B1 with every impl; B2, B6, B4, B5 with theirs)
@@ -286,7 +300,11 @@ starts from, and under "city_W177" at phase 14 (a)'s; for the
 fused-Hessian kernels under "random_W256_G11520",
 their errors on the random moments of phase 4;
 for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
-by dtype and residual_moments' time).  B4's and B5's `ms`, `plain_ms`,
+by dtype and residual_moments' time).  `bound_ms` is counted by what
+the inputs need (bounds, moments_bound), `dense_bound_ms` as if every
+entry were live; B1, B2 and B7 carry the inputs' `live_share`, B1 and
+B2 their times by shape under `by_shape` (medians of 5 runs, beside
+`warp_live_share`).  B4's and B5's `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are those of their default split (bf16x3);
 `by_split` holds both, B4's 'f32' with hess_v1's numbers (one
 instantiation), B5's with the times of its two stages, and B5's
@@ -509,6 +527,105 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_median_ms(fn, runs=5, iters=20):
+    """(median, all) of `runs` runs of time_ms(fn, iters): CUDA events
+    around back-to-back calls, so a call's host time counts where it
+    exceeds the kernel's."""
+    ms = [time_ms(fn, iters=iters) for _ in range(runs)]
+    return float(np.median(ms)), ms
+
+
+# bytes read between two timed launches so that each finds the 50 MB L2
+# cold, as in the LM loop (the H product and the glue run between them)
+L2_FLUSH_BYTES = 256 << 20
+
+
+def time_device_ms(fn, runs=5, iters=20):
+    """(median, all): device ms per call of fn with a cold L2, from `runs`
+    replays of a CUDA graph of `iters` (L2 flush, fn) pairs timed with
+    CUDA events, less the same graph's flushes alone (replayed in turn
+    with it).  The graph replays the launches without the host, so the
+    wrappers' Python time is not in it."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+    read = lambda: torch.sum(flush, dim=0, out=sink)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+        read()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = {}
+    for name, body in (("both", lambda: (read(), fn())), ("flush", read)):
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(iters):
+                body()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def replay(g):
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    for g in graphs.values():
+        replay(g)
+    ms = [replay(graphs["both"]) - replay(graphs["flush"])
+          for _ in range(runs)]
+    del graphs, flush
+    torch.cuda.empty_cache()
+    return float(np.median(ms)), ms
+
+
+def time_b1b2(pose, pk, aux, tag, card):
+    """B1 and B2 at one shape (single launches, or the batched ones for
+    a mom with a leading batch axis): the device time, the median of 5
+    CUDA-event runs of a graph of 20 launches each after an L2 flush
+    (time_device_ms), beside the bound recounted for these inputs and the
+    dense one, with the inputs' live share and warp-level live share; and
+    the wrapper's time back to back (time_median_ms), where the host's
+    Python time counts."""
+    from balm_tpu_torch.ops import packed_evaluate as pe
+
+    batched = pk.mom.dim() == 4
+    B = pk.mom.shape[0] if batched else 1
+    st = live_stats(pk.mom)
+    bnd = bounds(pk.wp, pk.gp, st, B=B)
+    csum = pe.csum_packed_batched if batched else pe.csum_packed
+    rows = pe.rows_packed_batched if batched else pe.rows_packed
+    out = {"B": B, "Wp": pk.wp, "Gp": pk.gp, "live_share": st["live_share"],
+           "warp_live_share": st["warp_live_share"]}
+    log(f"  [{tag}] live entries {st['live']} of {st['entries']} "
+        f"({100 * st['live_share']:.2f}%), live (scan, 32-plane warp) "
+        f"groups {100 * st['warp_live_share']:.2f}%")
+    for name, wrapper, fn in (
+            ("csum", csum, lambda: csum(pose, pk.mom, pk.cen, pk.cfix)),
+            ("rows", rows, lambda: rows(pose, pk.mom, pk.cen, aux))):
+        n0 = wrapper.launches
+        ms, runs = time_device_ms(fn)
+        wrapper_ms = time_median_ms(fn)[0]
+        if wrapper.launches <= n0:
+            raise AssertionError(f"[{tag}] the timed {name} calls did not "
+                                 f"launch the kernel")
+        bb = bnd[name]
+        out[name] = {"ms": ms, "runs_ms": runs, "wrapper_ms": wrapper_ms,
+                     "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+                     "dense_bound_ms": bb["dense_bound_ms"]}
+        log(f"  [{tag}] {name}{' batched' * batched}: device median "
+            f"{ms:.4f} ms (runs {min(runs):.4f}-{max(runs):.4f}, cold L2), "
+            f"bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
+            f"{bb['bytes']} B), {100 * bb['bound_ms'] / ms:.1f}% of it; "
+            f"dense bound {bb['dense_bound_ms']:.4f} ms; wrapper back to "
+            f"back {wrapper_ms:.4f} ms; on {card}")
+    return out
+
+
 def ragged_problem(seed, W=13, G=300, device="cuda"):
     """Random packed inputs at an unpadded shape: PSD moments, some scans
     not observing, some fixed moments."""
@@ -719,55 +836,94 @@ def same_steps(name, out, ref, ref_name, n=SLICE_ITERS):
                              f"falling")
 
 
-def bounds(Wp, Gp):
-    """Least time (ms) for each kernel's work at this shape: the largest
-    of bytes (inputs read once, outputs written once) over HBM bandwidth,
-    the fp32 (SIMT) flops over the fp32 peak and, for the fused-Hessian
-    kernels, the split's tensor-core passes over the needed entries at the
-    bf16 peak.  For those also `simt_bound_ms`, the bound with the whole
-    product at the fp32 peak (the earlier SIMT kernels' yardstick), for
-    the log only.  B4 at split 'f32' is hess_v1's instantiation and
-    bound; B5 by split: `hess_v3` (bf16x3) and `hess_v3_f32`."""
+def live_stats(mom):
+    """What the packed inputs' data need, counted on the card from n
+    (mom (..., Wp, 10, Gp), any leading batch axes): the live (scan,
+    plane) entries (n != 0) and their share; the share of (scan,
+    32-plane warp) groups holding a live entry, the unit that B1 and B2
+    skip; and the plane-sharing scan pairs, sum over planes of
+    L_g (L_g - 1) / 2 for L_g live scans, whose products B4-B6 need."""
+    import torch
+
+    live = (mom[..., 9, :] != 0).to(torch.uint8)         # (..., Wp, Gp)
+    Gp = live.shape[-1]
+    warps = torch.nn.functional.pad(live, (0, (-Gp) % 32)).unflatten(
+        -1, (-1, 32)).amax(-1)
+    Lg = live.sum(-2, dtype=torch.int64)                 # (..., Gp)
+    L = int(Lg.sum())
+    return {"live": L, "entries": live.numel(),
+            "live_share": L / live.numel(),
+            "warp_live_share": float(warps.double().mean()),
+            "pairs": int((Lg * (Lg - 1) // 2).sum())}
+
+
+def bounds(Wp, Gp, stats, B=1):
+    """Least time (ms) for each kernel's work on these inputs: B problems
+    of shape (Wp, Gp) whose mom gave `stats` (live_stats).  The largest
+    of bytes (each input byte the function needs read once, each output
+    written once) over HBM bandwidth, the fp32 (SIMT) flops over the
+    fp32 peak and, for the fused-Hessian kernels, the split's tensor-core
+    passes over the needed products at the bf16 peak.  Counted by what
+    the data need (an empty entry adds exactly zero: ops/packed.py's
+    invariant): n of every entry, the other nine mom channels and the
+    per-entry arithmetic of the live entries only, and for B4-B6 the
+    products over plane-sharing scan pairs only; the outputs whole (B2's
+    rows and B4-B6's Htilde are returned dense).  Beside each,
+    `dense_bound_ms`: the same count with every entry live (the bound of
+    the earlier records); for B4-B6 also `simt_bound_ms`, the dense bound
+    with the whole product at the fp32 peak (the SIMT kernels'
+    yardstick), for the log only.  B4 at split 'f32' is hess_v1's
+    instantiation and bound; B5 by split: `hess_v3` (bf16x3) and
+    `hess_v3_f32`."""
     wg = Wp * Gp
-    csum_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 10 * Gp + 10 * Gp)
-    rows_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp + 18 * wg
-                      + 42 * Wp)
-    # the fused-Hessian kernels: inputs once, Htilde (or B5's pair
-    # blocks), J and D once; one rows pass and the fp32 product over the
-    # output entries that the symmetric Htilde needs: the lower triangle
-    # of the 6Wp x 6Wp for B4 and B6; for B5 its off-diagonal pair blocks
-    # in full and the lower triangles of its nB diagonal ones.  Each entry
-    # is a dot product of 3 Gp terms (2 flops a term)
-    in_bytes = 4 * (Wp * 12 + 10 * wg + 3 * Gp + 17 * Gp)
     Bw = min(128, Wp)
     nB = -(-Wp // Bw)
     n_pairs = nB * (nB + 1) // 2
-    tri = lambda n: n * (n + 1) // 2
-    full = 2 * tri(6 * Wp) * 3 * Gp
-    pairs = 2 * ((n_pairs - nB) * (6 * Bw) ** 2
-                 + nB * tri(6 * Bw)) * 3 * Gp
-    rows_pass = ROWS_FLOPS_PER_WG * wg
-    res = {}
-    h_bytes = in_bytes + 4 * (36 * Wp * Wp + 42 * Wp)
-    v3_bytes = in_bytes + 4 * (n_pairs * 36 * Bw * Bw + 42 * nB * Bw)
-    for name, nbytes, flops, prod, passes in (
-            ("csum", csum_bytes, CSUM_FLOPS_PER_WG * wg, 0, 0),
-            ("rows", rows_bytes, rows_pass, 0, 0),
-            ("hess_v1", h_bytes, rows_pass, full, SPLIT_PASSES["f32"]),
-            ("hess_v2", h_bytes, rows_pass, full, SPLIT_PASSES["bf16x3"]),
-            ("hess_v3", v3_bytes, rows_pass, pairs, SPLIT_PASSES["bf16x3"]),
-            ("hess_v3_f32", v3_bytes, rows_pass, pairs,
-             SPLIT_PASSES["f32"])):
-        tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    out_h = 36 * Wp * Wp + 42 * Wp
+    out_v3 = n_pairs * 36 * Bw * Bw + 42 * nB * Bw
+
+    def count(L, pairs):
+        # name -> (floats moved, SIMT flops, product flops) over B problems
+        ins = B * (12 * Wp + wg + 3 * Gp) + 9 * L
+        rows_pass = ROWS_FLOPS_PER_WG * L
+        # each needed Htilde entry sums the 3 rank rows of the planes live
+        # at both of its scans: 36 entries per plane-sharing scan pair and
+        # 21 (a lower triangle) per live entry, 2 flops a term
+        prod = 6 * (36 * pairs + 21 * L)
+        hess = ins + B * 17 * Gp
+        return {"csum": (ins + B * 20 * Gp, CSUM_FLOPS_PER_WG * L, 0),
+                "rows": (hess + B * (18 * wg + 42 * Wp), rows_pass, 0),
+                "hess_v1": (hess + B * out_h, rows_pass, prod),
+                "hess_v2": (hess + B * out_h, rows_pass, prod),
+                "hess_v3": (hess + B * out_v3, rows_pass, prod),
+                "hess_v3_f32": (hess + B * out_v3, rows_pass, prod)}
+
+    passes = {"hess_v1": SPLIT_PASSES["f32"], "hess_v2":
+              SPLIT_PASSES["bf16x3"], "hess_v3": SPLIT_PASSES["bf16x3"],
+              "hess_v3_f32": SPLIT_PASSES["f32"]}
+
+    def least(floats, flops, prod, name):
+        tb = 4 * floats / PEAK_BYTES_PER_S * 1e3
         tf = flops / PEAK_F32_FLOPS * 1e3
-        tt = passes * prod / PEAK_BF16_FLOPS * 1e3
+        tt = passes.get(name, 0) * prod / PEAK_BF16_FLOPS * 1e3
+        return tb, tf, tt
+
+    need = count(stats["live"], stats["pairs"])
+    dense = count(B * wg, B * Gp * Wp * (Wp - 1) // 2)
+    res = {}
+    for name, (floats, flops, prod) in need.items():
+        tb, tf, tt = least(floats, flops, prod, name)
         res[name] = {"bound_ms": max(tb, tf, tt),
                      "bound_by": "bytes" if tb >= max(tf, tt)
                      else "operations",
-                     "bytes": nbytes, "flops": flops + passes * prod}
+                     "bytes": 4 * floats,
+                     "flops": flops + passes.get(name, 0) * prod,
+                     "dense_bound_ms": max(least(*dense[name], name))}
         if prod:
+            floats, flops, prod = dense[name]
             res[name]["simt_bound_ms"] = max(
-                tb, (flops + prod) / PEAK_F32_FLOPS * 1e3)
+                4 * floats / PEAK_BYTES_PER_S * 1e3,
+                (flops + prod) / PEAK_F32_FLOPS * 1e3)
     return res
 
 
@@ -787,7 +943,7 @@ def check_b5_dispatch(seed, dev, card, counters):
     _, aux = pe._aux_from_csum(csum, pk, 1e-9)
     args = (pose, pk.mom, pk.cen, aux)
     Bw = min(pe.BW_HESS3, W)
-    bnd = bounds(W, G)
+    bnd = bounds(W, G, live_stats(pk.mom))
     out = {}
     for split, name in V3.items():
         got = pe.hess_pairs_v3(*args, Bw, split=split)
@@ -806,6 +962,7 @@ def check_b5_dispatch(seed, dev, card, counters):
             f"on {card}")
         out[split] = {"ms": ms, "bound_ms": bb["bound_ms"],
                       "bound_by": bb["bound_by"],
+                      "dense_bound_ms": bb["dense_bound_ms"],
                       "max_abs_err": err["H"]["abs"], "err_by_output": err}
     if not pe.pallas2_to_pallas3(pk.wp):
         raise AssertionError(f"Wp={pk.wp} is below the dispatch width")
@@ -868,18 +1025,47 @@ def sass_counts():
 # phase 8: slice 3
 # --------------------------------------------------------------------------
 
-def moments_bound(W, G, itemsize):
-    """B7's least time (ms): bytes (R9, CH and OFS read once, Csum written
-    once) over HBM bandwidth against its flops over the peak of its
-    dtype."""
-    nbytes = itemsize * (13 * W * G + 10 * G + 9 * W)
-    flops = MOMENTS_FLOPS_PER_WG * W * G
+def moments_bound(W, G, itemsize, live):
+    """B7's least time (ms) on inputs with `live` entries of CH n != 0:
+    bytes (R9 read once, N of every entry, the other nine CH channels and
+    the three OFS of the live entries only, Csum written once; an entry
+    with N = 0 has zero moments and adds nothing) over HBM bandwidth
+    against its flops on the live entries over the peak of its dtype.
+    `dense_bound_ms`: the same with every entry live (the earlier
+    records' bound)."""
     peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_F64_FLOPS
-    tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / peak * 1e3
+
+    def least(L):
+        nbytes = itemsize * (W * G + 12 * L + 10 * G + 9 * W)
+        flops = MOMENTS_FLOPS_PER_WG * L
+        return nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3, nbytes, \
+            flops
+
+    tb, tf, nbytes, flops = least(live)
     return {"bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations",
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops,
+            "dense_bound_ms": max(least(W * G)[:2])}
+
+
+def moments_library_operands(R9, CH, OFS):
+    """B7's inputs as the operands of one torch.einsum that computes its
+    function, Csum_g = sum_w T'_gw C_gw T'_gw^T: T' (W, G, 4, 4) = [R_w |
+    t'_gw; 0 0 0 1] and C (W, G, 4, 4) from CH's ten channels."""
+    import torch
+
+    from balm_tpu_torch.ops import moments
+
+    W, _, G = CH.shape
+    T = torch.zeros((W, G, 4, 4), dtype=CH.dtype, device=CH.device)
+    T[..., :3, :3] = R9.reshape(W, 1, 3, 3)
+    T[..., :3, 3] = OFS.transpose(1, 2)
+    T[..., 3, 3] = 1.0
+    C = torch.zeros_like(T)
+    for k, (i, j) in enumerate(moments._CH):
+        C[..., i, j] = CH[:, k]
+        C[..., j, i] = CH[:, k]
+    return T, C
 
 
 def solve_timed(fn):
@@ -947,14 +1133,33 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
     del pose_r, pk_r, rag
     timing = {}
     for dt, x in packed.items():
-        bb = moments_bound(W, G, x[1].element_size())
+        live = int((x[1][:, 9] != 0).sum())
+        bb = moments_bound(W, G, x[1].element_size(), live)
         ms = time_ms(lambda: moments.accumulate_moments(*x))
         plain_ms = time_ms(lambda: moments.accumulate_moments_plain(*x),
                            iters=5)
-        timing[dt] = dict(ms=ms, plain_ms=plain_ms, **bb)
+        # the library yardstick: one torch.einsum once T' and C are built
+        # (their building timed apart); never on the port's path
+        prep_ms = time_ms(lambda: moments_library_operands(*x), iters=5)
+        Tl, Cl = moments_library_operands(*x)
+        lib = lambda: torch.einsum("wgik,wgkl,wgjl->gij", Tl, Cl, Tl)
+        lib_ms = time_ms(lib, iters=5)
+        Q = lib()
+        lib_out = torch.stack([Q[:, i, j] for i, j in moments._CH])
+        lib_rel = float((lib_out - moments.accumulate_moments_plain(*x))
+                        .abs().max() / lib_out.abs().max())
+        del Tl, Cl, Q, lib_out
+        timing[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          library_prep_ms=prep_ms,
+                          live_share=live / (W * G), **bb)
         log(f"  moments {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
-            f"{bb['bytes']} B, {bb['flops']} flop) at W={W} G={G} on {card}")
+            f"library (one torch.einsum over T' and C) {lib_ms:.4f} ms "
+            f"(building T' and C {prep_ms:.4f} ms; vs plain rel "
+            f"{lib_rel:.3e}), bound {bb['bound_ms']:.4f} ms "
+            f"({bb['bound_by']}: {bb['bytes']} B, {bb['flops']} flop; "
+            f"{100 * live / (W * G):.2f}% of the entries live), "
+            f"{100 * bb['bound_ms'] / ms:.1f}% of it; dense bound "
+            f"{bb['dense_bound_ms']:.4f} ms; at W={W} G={G} on {card}")
     rm_ms = time_ms(lambda: moments.residual_moments(T32, f))
     log(f"  residual_moments f32 (pack_inputs + kernel + unpack): "
         f"{rm_ms:.4f} ms on {card}")
@@ -1084,10 +1289,12 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
         "max_abs_err": recs["float32"]["abs"], "err_by_output": recs,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
-        "library_ms": None,
-        "by_dtype": {dt: {k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by")}
-                     for dt, t in timing.items()},
+        "library_ms": t32["library_ms"],
+        "dense_bound_ms": t32["dense_bound_ms"],
+        "live_share": t32["live_share"],
+        "by_dtype": {dt: {k: t[k] for k in (
+            "ms", "plain_ms", "library_ms", "library_prep_ms", "bound_ms",
+            "bound_by", "dense_bound_ms")} for dt, t in timing.items()},
         "residual_moments_ms": rm_ms,
         "solves": {"f64_xla": {"iters": res64.iters, "ms_per_iter": ms64,
                                "peak_bytes": peak64},
@@ -2232,18 +2439,14 @@ def batched_kernels_phase(args, dev, card):
         errs["rows_batched"][tag] = e["rows"]
         cargs = (pose, pk.mom, pk.cen, pk.cfix)
         hargs = (pose, pk.mom, pk.cen, aux)
-        bnd = bounds(W, G)
-        for name, key, fn, plain in (
-                ("csum_batched", "csum", pe.csum_packed_batched,
-                 pe.csum_packed_batched_plain),
-                ("rows_batched", "rows", pe.rows_packed_batched,
-                 pe.rows_packed_batched_plain)):
+        tb = time_b1b2(pose, pk, aux, tag, card)
+        for name, key, plain in (
+                ("csum_batched", "csum", pe.csum_packed_batched_plain),
+                ("rows_batched", "rows", pe.rows_packed_batched_plain)):
             a = cargs if key == "csum" else hargs
-            t = {"ms": time_ms(lambda: fn(*a), iters=50),
-                 "plain_ms": time_ms(lambda: plain(*a), iters=2, warmup=1),
-                 "bound_ms": B * bnd[key]["bound_ms"],
-                 "bound_by": bnd[key]["bound_by"],
-                 "B": B, "Wp": W, "Gp": G}
+            t = dict(tb[key], B=B, Wp=W, Gp=G, live_share=tb["live_share"],
+                     warp_live_share=tb["warp_live_share"],
+                     plain_ms=time_ms(lambda: plain(*a), iters=2, warmup=1))
             timing[name][tag] = t
             log(f"  {name} [{tag}]: kernel {t['ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
@@ -2265,7 +2468,8 @@ def batched_kernels_phase(args, dev, card):
             "err_by_output": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
-            "by_shape": timing[name]}
+            "dense_bound_ms": t["dense_bound_ms"],
+            "live_share": t["live_share"], "by_shape": timing[name]}
     return recs
 
 
@@ -4183,13 +4387,16 @@ MESH_N = 4
 # the JAX package's bars for sharded against unsharded
 # (tests/test_sharding.py): res relative, J and H relative to max|.|; the
 # LM poses absolute (on the corridors of (d)); on the 256-scan scene its
-# realworld-scale bars (tests/test_sharding.py:229-234: R 1e-8, p 1e-7,
+# realworld-scale bars (tests/test_sharding.py:129-130: R 1e-8, p 1e-7,
 # 10 iterations through a 1536-unknown Cholesky carry the evaluates'
-# ~5e-16 apart to ~1e-8 m on a 512 m chain) and realworld.run's final
-# residual relative
+# ~5e-16 apart to ~1e-8 m on a 512 m chain; (a) prints beside them what
+# permuting the planes alone moves the unsharded solve by) and
+# realworld.run's final residual relative
 TOL_SHARD = {"res": 1e-12, "J": 1e-10, "H": 1e-10, "pose": 1e-9,
              "R_rw": 1e-8, "p_rw": 1e-7}
 TOL_SHARD_RW = 1e-6
+# the plane orders of (a)'s roundoff spread
+SPREAD_SEEDS = (0, 1, 2, 3)
 # the sharded packed evaluate against the unsharded one of the same impl
 # (tests/test_sharded_pallas.py's bar)
 TOL_SHARD_PACKED = 1e-4
@@ -4274,7 +4481,7 @@ def mesh_phase(card, dev, devs, f64, R64, p64):
     if not rec["evaluate"]["res_rel"] <= TOL_SHARD["res"]:
         raise AssertionError("evaluate_shard_map res differs")
     rec["H"] = ev[2]
-    del ev, ev0
+    del ev
     ms = {"unsharded": time_ms(lambda: Fmod.evaluate(T, f64), iters=3,
                                warmup=1)}
     for n, f_n in fs.items():
@@ -4300,6 +4507,34 @@ def mesh_phase(card, dev, devs, f64, R64, p64):
         f"{rec['lm']['ms_per_iter_sharded']:.1f} ms per iteration (host "
         f"clock) on {card}; dR {dR:.3e} (tol {TOL_SHARD['R_rw']:.0e}) dp "
         f"{dp:.3e} (tol {TOL_SHARD['p_rw']:.0e})")
+    # what summation order alone moves this solve by: the unsharded
+    # evaluate and LM again with the planes permuted (SPREAD_SEEDS
+    # orders), so that every sum over planes runs in another order
+    # (scripts/corridor_roundoff.py's method)
+    spread = []
+    for seed in SPREAD_SEEDS:
+        perm = torch.randperm(f64.C.shape[0],
+                              generator=torch.Generator().manual_seed(seed))
+        f_perm = Fmod.PlaneFactors(*[x[perm.to(x.device)] for x in f64])
+        ev_p = Fmod.evaluate(T, f_perm)
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+        alt = lm.damping_iter(R64, p64, f_perm, cfg)
+        spread.append({"seed": seed, "J": rel(ev_p[1], ev0[1]),
+                       "H": rel(ev_p[2], ev0[2]), "iters": alt.iters,
+                       "dR": float((alt.R - ref.R).abs().max()),
+                       "dp": float((alt.p - ref.p).abs().max())})
+        del ev_p, f_perm
+        log(f"  (a) roundoff spread, planes permuted (seed {seed}): "
+            f"evaluate J {spread[-1]['J']:.3e} H {spread[-1]['H']:.3e} of "
+            f"max; damping_iter {alt.iters} iterations, dR "
+            f"{spread[-1]['dR']:.3e} dp {spread[-1]['dp']:.3e} from the "
+            f"unsharded run")
+    rec["lm"]["spread"] = spread
+    log(f"  (a) the sharded run: evaluate J {rec['evaluate']['J']['rel']:.3e}"
+        f" H {rec['evaluate']['H']['rel']:.3e} of max, LM dR {dR:.3e} dp "
+        f"{dp:.3e}; the permuted runs' largest: dR "
+        f"{max(x['dR'] for x in spread):.3e} dp "
+        f"{max(x['dp'] for x in spread):.3e}")
     check_rel("(a) damping_iter residual, sharded vs unsharded",
               out.residual, ref.residual, TOL_SHARD_RW)
     if not (out.iters == ref.iters and dR <= TOL_SHARD["R_rw"]
@@ -4624,13 +4859,20 @@ def main(argv=None) -> int:
         f"packed Wp={pk.wp} Gp={pk.gp} ({time.perf_counter() - t0:.2f} s)")
 
     log("phase 4/15 kernels vs plain")
+    # B1 and B2 timed at every shape checked, beside the bound recounted
+    # for its inputs (b1b2, by shape)
     recs, aux = check_kernels(pose, pk, "slice")
+    b1b2 = {"slice": time_b1b2(pose, pk, aux, "slice", card)}
     recs.update(check_hess(pose, pk, aux, "slice"))
     pose_r, pk_r = ragged_problem(args.seed, device=dev)
     _, aux_r = check_kernels(pose_r, pk_r, "ragged W=13 G=300")
+    b1b2["ragged_W13_G300"] = time_b1b2(pose_r, pk_r, aux_r,
+                                        "ragged W=13 G=300", card)
     check_hess(pose_r, pk_r, aux_r, "ragged W=13 G=300")
     pose_m, pk_m = ragged_problem(args.seed + 1, W=24, device=dev)
     _, aux_m = check_kernels(pose_m, pk_m, "W=24 G=300")
+    b1b2["ragged_W24_G300"] = time_b1b2(pose_m, pk_m, aux_m, "W=24 G=300",
+                                        card)
     check_hess(pose_m, pk_m, aux_m, "W=24 G=300 multi-block", bws=(8, 16))
     del pose_r, pk_r, aux_r, pose_m, pk_m, aux_m
     # random moments at the slice's shape: each Htilde entry sums 3 Gp =
@@ -4639,12 +4881,14 @@ def main(argv=None) -> int:
     pose_b, pk_b = ragged_problem(args.seed + 1, W=SCANS, G=11520,
                                   device=dev)
     _, aux_b = check_kernels(pose_b, pk_b, "random W=256 G=11520")
+    b1b2["random_W256_G11520"] = time_b1b2(pose_b, pk_b, aux_b,
+                                           "random W=256 G=11520", card)
     recs_b = check_hess(pose_b, pk_b, aux_b, "random W=256 G=11520",
                         f64=True)
     for name, r in recs_b.items():
         recs[name]["random_W256_G11520"] = r
     del pose_b, pk_b, aux_b
-    bnd = bounds(pk.wp, pk.gp)
+    bnd = bounds(pk.wp, pk.gp, live_stats(pk.mom))
     hargs = (pose, pk.mom, pk.cen, aux)
     rows_b = pe.rows_packed(*hargs)[0]
     counters = {"csum": pe.csum_packed, "rows": pe.rows_packed,
@@ -4687,11 +4931,10 @@ def main(argv=None) -> int:
             f"{v3_stage[name][1]:.4f} ms on {card}")
         del pcs
     timing = {
-        "csum": (time_ms(lambda: pe.csum_packed(pose, pk.mom, pk.cen,
-                                                pk.cfix)),
+        "csum": (b1b2["slice"]["csum"]["ms"],
                  time_ms(lambda: pe.csum_packed_plain(pose, pk.mom, pk.cen,
                                                       pk.cfix)), None),
-        "rows": (time_ms(lambda: pe.rows_packed(*hargs)),
+        "rows": (b1b2["slice"]["rows"]["ms"],
                  time_ms(lambda: pe.rows_packed_plain(*hargs), iters=5),
                  None),
         "hess_v1": (time_ms(lambda: pe.hess_packed(*hargs), iters=10),
@@ -4707,7 +4950,9 @@ def main(argv=None) -> int:
             time_ms(lambda: pe.hess_pairs_v3_plain(*hargs, Bw, split="f32"),
                     iters=3, warmup=1), lib_ms),
     }
-    if any(c.launches <= n_launch0[k] for k, c in counters.items()):
+    # (csum and rows were timed, and their launches checked, in time_b1b2)
+    if any(c.launches <= n_launch0[k] for k, c in counters.items()
+           if k not in ("csum", "rows")):
         raise AssertionError("the timed calls did not launch the kernels")
     for name, (ms, plain_ms, l_ms) in timing.items():
         bb = bnd[name]
@@ -4716,8 +4961,9 @@ def main(argv=None) -> int:
                 if "simt_bound_ms" in bb else "")
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             f"{lib_txt}, bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
-            f"{bb['bytes']} B, {bb['flops']} flop){simt}, "
-            f"{100 * bb['bound_ms'] / ms:.1f}% of it, at Wp={pk.wp} "
+            f"{bb['bytes']} B, {bb['flops']} flop), "
+            f"{100 * bb['bound_ms'] / ms:.1f}% of it; dense bound "
+            f"{bb['dense_bound_ms']:.4f} ms{simt}; at Wp={pk.wp} "
             f"Gp={pk.gp} on {card}")
 
     log("phase 5/15 small slice: card vs plain CPU path")
@@ -4927,12 +5173,19 @@ def main(argv=None) -> int:
             "max_abs_err": recs[name][main_key]["abs"],
             "err_by_output": recs[name], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[name]["bound_ms"],
-            "bound_by": bnd[name]["bound_by"], "library_ms": l_ms}
+            "bound_by": bnd[name]["bound_by"], "library_ms": l_ms,
+            "dense_bound_ms": bnd[name]["dense_bound_ms"]}
         rec["launches_sharded"] = {
             impl: n_l[name] for impl, n_l in
             rec15["packed"]["launches"].items() if name in n_l}
         rec["sharded_shape"] = rec15["packed"]["shape"]
         if name in ("csum", "rows"):
+            rec["live_share"] = b1b2["slice"]["live_share"]
+            rec["warp_live_share"] = b1b2["slice"]["warp_live_share"]
+            rec["by_shape"] = {
+                tag: dict({k: t[k] for k in ("B", "Wp", "Gp", "live_share",
+                                             "warp_live_share")}, **t[name])
+                for tag, t in b1b2.items()}
             rec["err_by_output"]["square_W72"] = \
                 rec13["loop"]["kernel_check"][name]
             rec["launches_optimize_poses"] = launches[name]
@@ -4948,6 +5201,7 @@ def main(argv=None) -> int:
                 sp: {"ms": timing[k][0], "plain_ms": timing[k][1],
                      "library_ms": timing[k][2],
                      "bound_ms": bnd[k]["bound_ms"],
+                     "dense_bound_ms": bnd[k]["dense_bound_ms"],
                      "launches": slice2[path][name]}
                 for sp, k, path in (("bf16x3", "hess_v2", "pallas2"),
                                     ("f32", "hess_v1",
@@ -4957,6 +5211,7 @@ def main(argv=None) -> int:
                 sp: {"ms": timing[k][0], "plain_ms": timing[k][1],
                      "library_ms": timing[k][2],
                      "bound_ms": bnd[k]["bound_ms"],
+                     "dense_bound_ms": bnd[k]["dense_bound_ms"],
                      "stage1_ms": v3_stage[k][0],
                      "stage2_ms": v3_stage[k][1],
                      "max_abs_err": recs[k]["H"]["abs"],

@@ -203,3 +203,20 @@ def test_checkpoint_and_pose_csv_match_jax(tmp_path):
                     tckpt.read_pose_csv(tmp_path / "j.csv")):
         np.testing.assert_array_equal(x, y)
     assert tckpt.unpack_lm_state({"R": 1}) is None
+
+
+def test_read_pose_csv_round_trip(tmp_path):
+    """A17: utils.checkpoint.read_pose_csv is the port's own function (as
+    the JAX package's is); a trajectory written by the port's
+    write_pose_csv reads back through both packages' readers to the same
+    arrays, within the file's 9 decimals."""
+    assert tckpt.read_pose_csv.__module__ == tckpt.__name__
+    R0, p0, _, _ = _problem()
+    R0, p0 = np.asarray(R0, np.float64), np.asarray(p0, np.float64)
+    t = np.linspace(0.0, 2.0, len(R0))
+    tckpt.write_pose_csv(tmp_path / "t.csv", _t(R0), _t(p0), t)
+    got_t = tckpt.read_pose_csv(tmp_path / "t.csv")
+    got_j = jckpt.read_pose_csv(tmp_path / "t.csv")
+    for x, y, ref in zip(got_t, got_j, (R0, p0, t)):
+        np.testing.assert_array_equal(x, np.asarray(y))
+        np.testing.assert_allclose(x, ref, rtol=0, atol=1e-9)
