@@ -23,6 +23,16 @@ in its `launches` attribute, and runs `accumulate_moments_plain` on CPU
 tensors; there is no fallback.  The translations are formed here in the
 glue, with the same operations as factors._shifted_poses, so that their
 cancellation rounds exactly as on the path without the kernel.
+
+The kernel relies on an invariant of its inputs: an entry with N == 0
+(CH channel 9) has P == 0 and v == 0 (channels 0-8).  Such an entry adds
+exactly zero to every output, so the kernel reads N first and skips it.
+`pack_inputs` enforces the invariant (`zero_empty`), as packed.
+pack_factors does for B1/B2; recentered factors built from points hold
+it already (ops/factors.recenter_bodies), so this departs from the JAX
+package's pack_inputs only on inputs that no such factor produces.  An
+empty entry with a non-finite t' (OFS) is skipped too, where a dense
+sum would have turned 0 * inf into NaN.
 """
 
 from __future__ import annotations
@@ -40,13 +50,21 @@ _CH = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2),
 _SYM3 = ((0, 1, 2), (1, 3, 4), (2, 4, 5))
 
 
+def zero_empty(CH):
+    """CH (W, 10, G) with channels 0-8 (P, v) zeroed wherever channel 9
+    (N) is 0: the invariant kernel B7 relies on."""
+    return torch.cat([torch.where(CH[:, 9:10] == 0, 0.0, CH[:, :9]),
+                      CH[:, 9:]], dim=1)
+
+
 def pack_inputs(T, f):
-    """(R9, CH, OFS) from poses T (W, 4, 4) and centered PlaneFactors."""
+    """(R9, CH, OFS) from poses T (W, 4, 4) and centered PlaneFactors;
+    CH holds the invariant of accumulate_moments (zero_empty)."""
     G, W = f.C.shape[:2]
     R = T[:, :3, :3]
     R9 = R.reshape(W, 9).contiguous()
     CH = torch.stack([f.C[..., i, j] for i, j in _CH], dim=-1)   # (G, W, 10)
-    CH = CH.permute(1, 2, 0).contiguous()
+    CH = zero_empty(CH.permute(1, 2, 0)).contiguous()
     with fp32_matmul():
         t_eff = (sm.matvec(R[None], f.body_centers) + T[None, :, :3, 3]
                  - f.centers[:, None, :])                         # (G, W, 3)
@@ -88,7 +106,9 @@ def accumulate_moments_plain(R9, CH, OFS):
 def accumulate_moments(R9, CH, OFS):
     """B7 wrapper: R9 (W, 9), CH (W, 10, G), OFS (W, 3, G) -> (10, G), in
     CH's dtype (float32 or float64) — the CUDA kernel on CUDA tensors,
-    accumulate_moments_plain on CPU tensors."""
+    accumulate_moments_plain on CPU tensors.  CH must hold the invariant
+    P == 0 and v == 0 wherever N == 0 (as pack_inputs makes it): the
+    kernel skips those entries unread."""
     if _cuda.on_cpu(R9, CH, OFS):
         return accumulate_moments_plain(R9, CH, OFS)
     W, G = _shapes(R9, CH, OFS)

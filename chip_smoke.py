@@ -69,12 +69,15 @@ failure raises and the script exits non-zero:
                impl against evaluate_packed_jw; ms per LM iteration
   8. slice 3 - the f64 XLA evaluator path and kernel B7 `moments` at the
                same size: (a) B7 against its plain version in f32 and f64
-               on the scene's recentered factors and on a ragged-W
-               problem, CUDA-event times beside its bound (recounted
-               for the live entries, the dense one beside it), its plain
-               version's, residual_moments' and the library's (one
-               torch.einsum over T' and C, built beforehand) time; (b)
-               the residual
+               on the scene's recentered factors, on random W=256,
+               G=11520 moments (every warp live) and on ragged W=13 and
+               W=300, G=384 problems (moments_inputs), the same bits twice, the
+               inputs' live and warp-live shares, its device time (CUDA
+               graph, cold L2) beside the warm back-to-back mean and its
+               bound (recounted for the live entries, the dense one
+               beside it); on the scene also its plain version's,
+               residual_moments' and the library's (one torch.einsum
+               over T' and C, built beforehand) time; (b) the residual
                through B7 (residual_only(centered=True, use_pallas=True),
                every launch count set to 0 just before and read just
                after) against the moment path and against f64;
@@ -299,12 +302,12 @@ errors at phase 13 (a)'s shape, the packed factors its loop-closure BA
 starts from, and under "city_W177" at phase 14 (a)'s; for the
 fused-Hessian kernels under "random_W256_G11520",
 their errors on the random moments of phase 4;
-for B7 per dtype and problem, with `ms`, `plain_ms` and `bound_ms` also
-by dtype and residual_moments' time).  `bound_ms` is counted by what
-the inputs need (bounds, moments_bound), `dense_bound_ms` as if every
-entry were live; B1, B2 and B7 carry the inputs' `live_share`, B1 and
-B2 their times by shape under `by_shape` (medians of 5 runs, beside
-`warp_live_share`).  B4's and B5's `ms`, `plain_ms`,
+for B7 per problem and dtype, beside residual_moments' time).
+`bound_ms` is counted by what the inputs need (bounds, moments_bound),
+`dense_bound_ms` as if every entry were live; B1, B2 and B7 carry the
+inputs' `live_share` and their device times by shape under `by_shape`
+(medians of 5 runs, beside `warp_live_share`; B7's per problem and
+dtype, with the warm back-to-back `warm_ms`).  B4's and B5's `ms`, `plain_ms`,
 `bound_ms` and `library_ms` are those of their default split (bf16x3);
 `by_split` holds both, B4's 'f32' with hess_v1's numbers (one
 instantiation), B5's with the times of its two stages, and B5's
@@ -1068,6 +1071,37 @@ def moments_library_operands(R9, CH, OFS):
     return T, C
 
 
+def moments_inputs(seed, f, f_64, T32, T64):
+    """tag -> B7's (R9, CH, OFS) at the shapes phase 8 (a) checks and
+    times: the scene's moments.pack_inputs from its recentered factors in
+    float32 (f, poses T32) and float64 (f_64, T64); ragged_problem's
+    random W = 256, G = 11,520 moments (every warp live) and its ragged
+    W = 13, G = 384 and W = 300, G = 384 problems (the kernel takes W >
+    256 in chunks of 256 scans), each in float32 and float64.  From the
+    random packed moments: R9 the poses' rotations, CH the moments (b
+    standing in for v) with P and v zeroed where N == 0 (moments.
+    zero_empty, the kernel's invariant), OFS the poses' translations less
+    the centers (formed in float32)."""
+    import torch
+
+    from balm_tpu_torch.ops import moments
+
+    dev = f.C.device
+    out = {"scene_float32": moments.pack_inputs(T32, f),
+           "scene_float64": moments.pack_inputs(T64, f_64)}
+    for name, s, W, G in (("random_W256_G11520", seed + 1, SCANS, 11520),
+                          ("ragged_W13_G384", seed + 2, 13, 384),
+                          ("ragged_W300_G384", seed + 3, 300, 384)):
+        pose, pk = ragged_problem(s, W=W, G=G, device=dev)
+        rand = (pose[:, :9], moments.zero_empty(pk.mom),
+                pose[:, 9:12, None] - pk.cen[None])
+        for dt in ("float32", "float64"):
+            out[f"{name}_{dt}"] = tuple(t.to(getattr(torch, dt))
+                                        .contiguous() for t in rand)
+        del pose, pk, rand
+    return out
+
+
 def solve_timed(fn):
     """(LMResult, ms per iteration by CUDA events, peak device bytes)."""
     import torch
@@ -1109,33 +1143,43 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
     T64 = lie.pose_matrix(R0d, p0d)
     f_64 = Fmod.factors_from_numpy(Fmod.recenter_bodies(vres.factors),
                                    device=dev, dtype=f64)
-    G, W = f.C.shape[:2]
 
     log("  (a) B7 moments against its plain version")
-    recs = {}
-    packed = {"float32": moments.pack_inputs(T32, f),
-              "float64": moments.pack_inputs(T64, f_64)}
-    for dt, x in packed.items():
-        got = moments.accumulate_moments(*x)
+    # at each shape: same bits twice, within TOL_MOMENTS of the plain
+    # version, the device time (cold L2, CUDA graph) beside the warm
+    # back-to-back mean and the bound recounted for the inputs
+    recs, by_shape = {}, {}
+    for tag, x in moments_inputs(args.seed, f, f_64, T32, T64).items():
+        dt = str(x[1].dtype).removeprefix("torch.")
+        W, _, G = x[1].shape
+        got = same_bits(f"[{tag}] moments",
+                        lambda: (moments.accumulate_moments(*x),))[0]
         exp = moments.accumulate_moments_plain(*x)
         torch.cuda.synchronize()
-        recs[dt] = compare(f"[scene {dt}] moments W={W} G={G}", got, exp,
-                           TOL_MOMENTS[dt])
-    pose_r, pk_r = ragged_problem(args.seed + 2, W=13, G=384, device=dev)
-    rag = (pose_r[:, :9], pk_r.mom, pose_r[:, 9:12, None] - pk_r.cen[None])
-    for dt in ("float32", "float64"):
-        x = [t.to(getattr(torch, dt)).contiguous() for t in rag]
-        got = moments.accumulate_moments(*x)
-        exp = moments.accumulate_moments_plain(*x)
-        torch.cuda.synchronize()
-        recs[f"ragged_W13_G384_{dt}"] = compare(
-            f"[ragged {dt}] moments W=13 G=384", got, exp, TOL_MOMENTS[dt])
-    del pose_r, pk_r, rag
-    timing = {}
-    for dt, x in packed.items():
-        live = int((x[1][:, 9] != 0).sum())
-        bb = moments_bound(W, G, x[1].element_size(), live)
-        ms = time_ms(lambda: moments.accumulate_moments(*x))
+        recs[tag] = compare(f"[{tag}] moments W={W} G={G}", got, exp,
+                            TOL_MOMENTS[dt])
+        st = live_stats(x[1])
+        bb = moments_bound(W, G, x[1].element_size(), st["live"])
+        n0 = moments.accumulate_moments.launches
+        ms, runs = time_device_ms(lambda: moments.accumulate_moments(*x))
+        warm_ms = time_ms(lambda: moments.accumulate_moments(*x))
+        if moments.accumulate_moments.launches <= n0:
+            raise AssertionError(f"[{tag}] the timed moments calls did not "
+                                 f"launch the kernel")
+        by_shape[tag] = dict(ms=ms, runs_ms=runs, warm_ms=warm_ms,
+                             live_share=st["live_share"],
+                             warp_live_share=st["warp_live_share"], **bb)
+        log(f"  [{tag}] live entries {st['live']} of {st['entries']} "
+            f"({100 * st['live_share']:.2f}%), live (scan, 32-plane warp) "
+            f"groups {100 * st['warp_live_share']:.2f}%; moments device "
+            f"median {ms:.4f} ms (runs {min(runs):.4f}-{max(runs):.4f}, "
+            f"cold L2), bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}: "
+            f"{bb['bytes']} B, {bb['flops']} flop), "
+            f"{100 * bb['bound_ms'] / ms:.1f}% of it; dense bound "
+            f"{bb['dense_bound_ms']:.4f} ms; warm back to back "
+            f"{warm_ms:.4f} ms; at W={W} G={G} on {card}")
+        if not tag.startswith("scene"):
+            continue
         plain_ms = time_ms(lambda: moments.accumulate_moments_plain(*x),
                            iters=5)
         # the library yardstick: one torch.einsum once T' and C are built
@@ -1146,24 +1190,17 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
         lib_ms = time_ms(lib, iters=5)
         Q = lib()
         lib_out = torch.stack([Q[:, i, j] for i, j in moments._CH])
-        lib_rel = float((lib_out - moments.accumulate_moments_plain(*x))
-                        .abs().max() / lib_out.abs().max())
+        lib_rel = float((lib_out - exp).abs().max() / lib_out.abs().max())
         del Tl, Cl, Q, lib_out
-        timing[dt] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          library_prep_ms=prep_ms,
-                          live_share=live / (W * G), **bb)
-        log(f"  moments {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library (one torch.einsum over T' and C) {lib_ms:.4f} ms "
-            f"(building T' and C {prep_ms:.4f} ms; vs plain rel "
-            f"{lib_rel:.3e}), bound {bb['bound_ms']:.4f} ms "
-            f"({bb['bound_by']}: {bb['bytes']} B, {bb['flops']} flop; "
-            f"{100 * live / (W * G):.2f}% of the entries live), "
-            f"{100 * bb['bound_ms'] / ms:.1f}% of it; dense bound "
-            f"{bb['dense_bound_ms']:.4f} ms; at W={W} G={G} on {card}")
+        by_shape[tag].update(plain_ms=plain_ms, library_ms=lib_ms,
+                             library_prep_ms=prep_ms)
+        log(f"  [{tag}] moments plain {plain_ms:.4f} ms, library (one "
+            f"torch.einsum over T' and C) {lib_ms:.4f} ms (building T' "
+            f"and C {prep_ms:.4f} ms; vs plain rel {lib_rel:.3e}) on "
+            f"{card}")
     rm_ms = time_ms(lambda: moments.residual_moments(T32, f))
     log(f"  residual_moments f32 (pack_inputs + kernel + unpack): "
         f"{rm_ms:.4f} ms on {card}")
-    del packed
 
     log("  (b) the residual through B7")
     for c in counters.values():
@@ -1280,21 +1317,23 @@ def slice3(args, dev, card, scans, R_gt, p_gt, R0, p0, vcfg, vres, f, ref,
                              f"{kept}")
     same_steps("hybrid under tf32", tr, ref, "hybrid")
 
-    t32 = timing["float32"]
+    t32 = by_shape["scene_float32"]
     return {
         "name": "moments", "route": "cuda",
         "source": "balm_tpu_torch/csrc/moments_kernels.cu",
         "replaces": "balm_tpu/ops/pallas_moments.py:41",
         "launches": b7_launches["moments"],
-        "max_abs_err": recs["float32"]["abs"], "err_by_output": recs,
+        "max_abs_err": recs["scene_float32"]["abs"], "err_by_output": recs,
         "ms": t32["ms"], "plain_ms": t32["plain_ms"],
         "bound_ms": t32["bound_ms"], "bound_by": t32["bound_by"],
         "library_ms": t32["library_ms"],
         "dense_bound_ms": t32["dense_bound_ms"],
         "live_share": t32["live_share"],
-        "by_dtype": {dt: {k: t[k] for k in (
-            "ms", "plain_ms", "library_ms", "library_prep_ms", "bound_ms",
-            "bound_by", "dense_bound_ms")} for dt, t in timing.items()},
+        "warp_live_share": t32["warp_live_share"],
+        "by_shape": {tag: {k: t[k] for k in (
+            "ms", "warm_ms", "bound_ms", "bound_by", "dense_bound_ms",
+            "live_share", "warp_live_share", "plain_ms", "library_ms",
+            "library_prep_ms") if k in t} for tag, t in by_shape.items()},
         "residual_moments_ms": rm_ms,
         "solves": {"f64_xla": {"iters": res64.iters, "ms_per_iter": ms64,
                                "peak_bytes": peak64},

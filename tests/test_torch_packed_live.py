@@ -18,6 +18,15 @@ shard_packed's lane slices:
 The plain versions of B1 and B2 (what the kernels are held against on
 the card) give the same outputs, torch.equal, when the b channels of the
 empty entries are overwritten with large finite values.
+
+The same for kernel B7 `moments` (balm_tpu_torch/ops/moments.py), which
+relies on P == 0 and v == 0 wherever N == 0: on tests/test_factors.
+make_problem's recentered factors with unobserved entries,
+moments.pack_inputs keeps the invariant, leaves the inputs as they were
+and matches the JAX package's pallas_moments.pack_inputs; junk P and v at
+empty entries come out zeroed; and accumulate_moments_plain gives the
+same bits on such factors, and with large finite t' at the empty
+entries, as on the clean ones.
 """
 
 import jax
@@ -28,15 +37,20 @@ import torch
 
 import chip_smoke
 from balm_tpu.ops import factors as jF
+from balm_tpu.ops import lie as jlie
 from balm_tpu.ops import packed as jpk
+from balm_tpu.ops import pallas_moments as jpm
+from balm_tpu.parallel.sharded import pad_planes
 from balm_tpu_torch.config import VoxelConfig
 from balm_tpu_torch.ops import factors as tF
 from balm_tpu_torch.ops import lie as tlie
+from balm_tpu_torch.ops import moments as tmom
 from balm_tpu_torch.ops import packed as tpk
 from balm_tpu_torch.ops import packed_evaluate as tpe
 from balm_tpu_torch.parallel import sharded
 from balm_tpu_torch.parallel import sharded_pallas as sp
 from balm_tpu_torch.voxel import grid
+from test_factors import make_problem
 
 TOL = 1e-6
 SHARDS = 4
@@ -166,3 +180,81 @@ def test_empty_entries_contribute_exactly_zero(scene):
     rb = tpe.rows_packed_batched(*bat, stack(aux, aux))
     for x in rb:
         assert torch.equal(x[0], x[1])
+
+
+@pytest.fixture(scope="module")
+def moment_problem():
+    """test_torch_factors' B7 problem: recentered bodies with unobserved
+    (scan, plane) entries, conditioning centers, a fixed moment, the plane
+    axis padded to 128 (padding planes empty too)."""
+    R, p, f, centers = make_problem(G=7, W=5, seed=61, sparse_obs=True,
+                                    with_fix=True)
+    f = pad_planes(jF.recenter_bodies(f._replace(centers=centers)), 128)
+    T = jlie.pose_matrix(R, p)
+    ft = tF.factors_from_numpy([np.asarray(x) for x in f],
+                               dtype=torch.float64)
+    return T, torch.tensor(np.asarray(T)), f, ft
+
+
+def _check_moment_invariant(CH):
+    empty = (CH[:, 9:10] == 0).expand_as(CH[:, :9])
+    assert bool((CH[:, :9][empty] == 0).all())
+    return int((CH[:, 9] != 0).sum()), CH[:, 9].numel()
+
+
+def test_moments_pack_inputs_keeps_the_invariant_and_matches_jax(
+        moment_problem):
+    T, Tt, f, ft = moment_problem
+    packed = tmom.pack_inputs(Tt, ft)
+    live, total = _check_moment_invariant(packed[1])
+    assert 0 < live < total
+    # unchanged: the channels as gathered before the invariant was applied
+    raw = torch.stack([ft.C[..., i, j] for i, j in tmom._CH], -1)
+    assert torch.equal(packed[1], raw.permute(1, 2, 0))
+    for a, b in zip(packed, jpm.pack_inputs(T, f)):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert _rel(a.numpy(), b) <= 1e-12
+
+
+def _junk_at_empty(ft):
+    """ft with large random P and v at every entry with N == 0."""
+    empty = ft.C[..., 3, 3] == 0
+    junk = 1e3 * torch.randn(ft.C.shape, dtype=ft.C.dtype,
+                             generator=torch.Generator().manual_seed(1))
+    junk = junk + junk.transpose(-1, -2)
+    junk[..., 3, 3] = 0
+    return ft._replace(C=torch.where(empty[..., None, None], junk, ft.C))
+
+
+def test_moments_pack_inputs_zeroes_junk_at_empty_entries(moment_problem):
+    _, Tt, _, ft = moment_problem
+    dirty = _junk_at_empty(ft)
+    assert not torch.equal(dirty.C, ft.C)
+    got, ref = tmom.pack_inputs(Tt, dirty), tmom.pack_inputs(Tt, ft)
+    _check_moment_invariant(got[1])
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_moments_plain_ignores_empty_entries(moment_problem):
+    """accumulate_moments_plain, what B7 is held against on the card: the
+    same bits on the packed junk factors, and with large finite t' at the
+    empty entries, as on the clean inputs."""
+    _, Tt, _, ft = moment_problem
+    R9, CH, OFS = tmom.pack_inputs(Tt, ft)
+    ref = tmom.accumulate_moments_plain(R9, CH, OFS)
+    assert torch.equal(
+        tmom.accumulate_moments_plain(*tmom.pack_inputs(Tt,
+                                                        _junk_at_empty(ft))),
+        ref)
+    empty = (CH[:, 9:10] == 0).expand_as(OFS)
+    big = torch.tensor([3.0e6, -7.5e5, 1.25e6],
+                       dtype=OFS.dtype)[None, :, None].expand_as(OFS)
+    far = torch.where(empty, big, OFS)
+    assert not torch.equal(far, OFS)
+    assert torch.equal(tmom.accumulate_moments_plain(R9, CH, far), ref)
+    # and in float32, as on the card's f32 path
+    x32 = [t.float() for t in (R9, CH, OFS)]
+    assert torch.equal(tmom.accumulate_moments_plain(x32[0], x32[1],
+                                                     far.float()),
+                       tmom.accumulate_moments_plain(*x32))
